@@ -1,0 +1,345 @@
+"""Flow-matching DiT denoiser (port of ``vietvoice_tts_tpu/models/dit.py``).
+
+Same network and numerics as the JAX module, written as an ``nn.Module``:
+
+- AdaLN-Zero conditioning from the flow time; the per-block modulations
+  depend only on t, so the sampler computes them for the whole time grid
+  once (:meth:`DiT.time_modulations`) and passes them in.
+- Packed QKV ``[q_heads ‖ k_heads ‖ v_heads]`` along the feature dim. With
+  ``use_kernels`` it goes to the fused attention wrapper
+  (``ops/kernels/fused_rope_attention.py``), which launches the CUDA kernel
+  on CUDA tensors or raises; without it, and for CPU tensors, the split /
+  ``apply_rope`` / reference-attention path runs.
+- The residual stream and matmuls are in ``compute_dtype``; LayerNorm
+  statistics, modulation math, the time embedding, the text embedding's
+  residual stream and the final projection are float32.
+- Text and mel share the sequence axis (F5-style): character IDs padded with
+  -1 to the frame bucket are embedded through a small ConvNeXt stack.
+
+Layouts at the public methods match the JAX functions: activations are
+``[B, N, C]``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import List
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.kernels.fused_rope_attention import (
+    fused_qkv_rope_attention,
+    fused_qkv_rope_attention_reference,
+)
+from ..ops.rope import rope_tables
+
+TIME_FREQ_DIM = 256  # sinusoidal feature width for the flow time
+CONV_POS_KERNEL = 31
+TEXT_CONV_KERNEL = 7
+LN_EPS = 1e-6
+
+
+@dataclasses.dataclass(frozen=True)
+class DiTConfig:
+    dim: int = 1024
+    depth: int = 22
+    heads: int = 8
+    ff_mult: int = 2
+    n_mels: int = 100
+    text_dim: int = 512
+    text_conv_layers: int = 4
+    vocab_size: int = 256
+    compute_dtype: torch.dtype = torch.bfloat16
+    norm_dtype: torch.dtype = torch.float32
+    use_kernels: bool = False
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.heads
+
+
+# ---------------------------------------------------------------------------
+# Initialization (numpy; the same RNG draws in the same order as the JAX
+# package's init_dit_params, so one seed gives one pack in both packages)
+# ---------------------------------------------------------------------------
+
+
+def _as_rng(seed) -> np.random.Generator:
+    if isinstance(seed, np.random.Generator):
+        return seed
+    return np.random.default_rng(seed)
+
+
+def _dense(rng: np.random.Generator, fan_in: int, fan_out: int, *lead: int):
+    """LeCun-normal weight [*, fan_in, fan_out] + zero bias."""
+    std = 1.0 / np.sqrt(fan_in)
+    w = rng.normal(0.0, std, (*lead, fan_in, fan_out)).astype(np.float32)
+    b = np.zeros((*lead, fan_out), np.float32)
+    return {"w": w, "b": b}
+
+
+def _text_block(rng: np.random.Generator, dim: int) -> dict:
+    inter = 2 * dim
+    k = TEXT_CONV_KERNEL
+    return {
+        "dwconv": {
+            "w": rng.normal(0.0, 1.0 / np.sqrt(k), (k, 1, dim)).astype(np.float32),
+            "b": np.zeros((dim,), np.float32),
+        },
+        "pw1": _dense(rng, dim, inter),
+        "pw2": _dense(rng, inter, dim),
+    }
+
+
+def init_dit_params(seed, cfg: DiTConfig) -> dict:
+    """Random-init parameter tree in the JAX package's layout (numpy float32
+    leaves; ``models/params.py`` turns it into module weights)."""
+    rng = _as_rng(seed)
+    d, depth = cfg.dim, cfg.depth
+    # AdaLN-Zero: modulation projections start at exactly zero.
+    ada = {
+        "w": np.zeros((depth, d, 6 * d), np.float32),
+        "b": np.zeros((depth, 6 * d), np.float32),
+    }
+    blocks = {
+        "ada": ada,
+        "qkv": _dense(rng, d, 3 * d, depth),
+        "attn_out": _dense(rng, d, d, depth),
+        "ff1": _dense(rng, d, cfg.ff_mult * d, depth),
+        "ff2": _dense(rng, cfg.ff_mult * d, d, depth),
+    }
+    k = CONV_POS_KERNEL
+    conv_pos: List[dict] = [
+        {
+            "w": rng.normal(0.0, 1.0 / np.sqrt(k), (k, 1, d)).astype(np.float32),
+            "b": np.zeros((d,), np.float32),
+        },
+        _dense(rng, d, d),
+    ]
+    return {
+        "text_embed": {
+            # Row 0 is the filler token (pad id -1 → index 0).
+            "table": (
+                rng.normal(0.0, 0.02, (cfg.vocab_size + 1, cfg.text_dim))
+            ).astype(np.float32),
+            "blocks": [_text_block(rng, cfg.text_dim) for _ in range(cfg.text_conv_layers)],
+        },
+        "time_embed": {
+            "mlp1": _dense(rng, TIME_FREQ_DIM, d),
+            "mlp2": _dense(rng, d, d),
+        },
+        "input_proj": _dense(rng, 2 * cfg.n_mels + cfg.text_dim, d),
+        "conv_pos": conv_pos,
+        "blocks": blocks,
+        "final_ada": {
+            "w": np.zeros((d, 2 * d), np.float32),
+            "b": np.zeros((2 * d,), np.float32),
+        },
+        "final_proj": _dense(rng, d, cfg.n_mels),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Building blocks
+# ---------------------------------------------------------------------------
+
+
+def dwconv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Depthwise 1-D conv with XLA SAME padding on x [B, N, C].
+
+    weight [C, 1, k], bias [C], both cast to x's dtype. Padding is
+    ``lo = (k-1)//2`` before and ``k-1-lo`` after, as XLA pads SAME."""
+    k = weight.shape[-1]
+    lo = (k - 1) // 2
+    xt = F.pad(x.transpose(1, 2), (lo, k - 1 - lo))
+    y = F.conv1d(xt, weight.to(x.dtype), bias.to(x.dtype), groups=x.shape[-1])
+    return y.transpose(1, 2)
+
+
+def layernorm(x: torch.Tensor, stats_dtype=torch.float32) -> torch.Tensor:
+    """Non-affine LayerNorm, eps 1e-6, statistics in ``stats_dtype``;
+    returns float32."""
+    xs = x.to(stats_dtype)
+    return F.layer_norm(xs, (xs.shape[-1],), eps=LN_EPS).float()
+
+
+def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+    """``x @ W + b`` in x's dtype (weights are stored in the policy dtype)."""
+    return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
+
+
+class TextBlock(nn.Module):
+    """ConvNeXt-1D residual block on the text embedding."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.dwconv = nn.Conv1d(dim, dim, TEXT_CONV_KERNEL, groups=dim)
+        self.pw1 = nn.Linear(dim, 2 * dim)
+        self.pw2 = nn.Linear(2 * dim, dim)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """x: [B, N, C] float32 → float32."""
+        h = dwconv(x, self.dwconv.weight, self.dwconv.bias)
+        h = layernorm(h).to(dtype)
+        h = F.gelu(linear(h, self.pw1), approximate="tanh")
+        h = linear(h, self.pw2)
+        return x + h.float()
+
+
+class DiTBlock(nn.Module):
+    """One transformer block; ``ada`` is applied outside, hoisted."""
+
+    def __init__(self, cfg: DiTConfig):
+        super().__init__()
+        d = cfg.dim
+        self.ada = nn.Linear(d, 6 * d)
+        self.qkv = nn.Linear(d, 3 * d)
+        self.attn_out = nn.Linear(d, d)
+        self.ff1 = nn.Linear(d, cfg.ff_mult * d)
+        self.ff2 = nn.Linear(cfg.ff_mult * d, d)
+
+
+class DiT(nn.Module):
+    """Velocity-field network. Build it, then load weights made by
+    ``models/params.py:from_jax_tree`` with ``load_state_dict(..., assign=True)``
+    (that keeps each weight's policy dtype)."""
+
+    def __init__(self, cfg: DiTConfig):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.dim
+        self.text_table = nn.Embedding(cfg.vocab_size + 1, cfg.text_dim)
+        self.text_blocks = nn.ModuleList(
+            [TextBlock(cfg.text_dim) for _ in range(cfg.text_conv_layers)]
+        )
+        self.time_mlp1 = nn.Linear(TIME_FREQ_DIM, d)
+        self.time_mlp2 = nn.Linear(d, d)
+        self.input_proj = nn.Linear(2 * cfg.n_mels + cfg.text_dim, d)
+        self.conv_pos_dw = nn.Conv1d(d, d, CONV_POS_KERNEL, groups=d)
+        self.conv_pos_pw = nn.Linear(d, d)
+        self.blocks = nn.ModuleList([DiTBlock(cfg) for _ in range(cfg.depth)])
+        self.final_ada = nn.Linear(d, 2 * d)
+        self.final_proj = nn.Linear(d, cfg.n_mels)
+        self._rope_cache: dict = {}
+
+    # -- Hoisted pieces ----------------------------------------------------
+
+    def text_embed(self, text_ids: torch.Tensor) -> torch.Tensor:
+        """Character IDs [B, N] (-1 padded) → text features [B, N, text_dim]
+        float32. Independent of x and t: computed once per solve."""
+        ids = torch.clamp(text_ids.long() + 1, 0, self.cfg.vocab_size)
+        emb = F.embedding(ids, self.text_table.weight).float()
+        for blk in self.text_blocks:
+            emb = blk(emb, self.cfg.compute_dtype)
+        return emb
+
+    def time_embedding(self, t: torch.Tensor) -> torch.Tensor:
+        """Sinusoidal features of the flow time → MLP. t [B] → [B, dim] f32."""
+        half = TIME_FREQ_DIM // 2
+        freqs = torch.exp(
+            -math.log(10000.0)
+            * torch.arange(half, dtype=torch.float32, device=t.device)
+            / half
+        )
+        args = t.float()[:, None] * freqs[None, :] * 1000.0
+        feats = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+        h = F.silu(F.linear(feats, self.time_mlp1.weight.float(), self.time_mlp1.bias.float()))
+        return F.linear(h, self.time_mlp2.weight.float(), self.time_mlp2.bias.float())
+
+    def time_modulations(self, t: torch.Tensor):
+        """AdaLN modulations for flow times t [S] → (mods [S, depth, 6d],
+        fmod [S, 2d]), float32 (weights stored in compute dtype are widened,
+        as JAX promotes them in the product)."""
+        t_emb = F.silu(self.time_embedding(t))
+        mods = torch.stack(
+            [
+                F.linear(t_emb, blk.ada.weight.float(), blk.ada.bias.float())
+                for blk in self.blocks
+            ],
+            dim=1,
+        )
+        fmod = F.linear(t_emb, self.final_ada.weight.float(), self.final_ada.bias.float())
+        return mods, fmod
+
+    def _rope(self, n: int, device: torch.device):
+        key = (n, device)
+        if key not in self._rope_cache:
+            cos, sin = rope_tables(n, self.cfg.head_dim)
+            dtype = self.cfg.compute_dtype
+            self._rope_cache[key] = (
+                torch.from_numpy(cos).to(device=device, dtype=dtype),
+                torch.from_numpy(sin).to(device=device, dtype=dtype),
+            )
+        return self._rope_cache[key]
+
+    # -- Forward -----------------------------------------------------------
+
+    def forward_embedded(
+        self,
+        x: torch.Tensor,  # [B, N, n_mels] noisy latent
+        cond: torch.Tensor,  # [B, N, n_mels] masked-infill conditioning mel
+        text_emb: torch.Tensor,  # [B, N, text_dim] from text_embed
+        t: torch.Tensor,  # [B] flow time in [0, 1]
+        mask: torch.Tensor,  # [B, N] bool, True = valid frame
+        time_mod=None,  # optional (mods [depth, B', 6d], fmod [B', 2d])
+    ) -> torch.Tensor:
+        """Predict the flow velocity field [B, N, n_mels] float32; masked
+        frames return exactly 0. ``time_mod`` carries modulations hoisted by
+        the sampler (B' = 1 broadcasts); when None they come from ``t``."""
+        cfg = self.cfg
+        dtype = cfg.compute_dtype
+        b, n, _ = x.shape
+        mask_f = mask[..., None].float()
+
+        # Zero padding frames on the way in so convs can't leak garbage inward.
+        h_in = torch.cat(
+            [x.float() * mask_f, cond.float() * mask_f, text_emb * mask_f], dim=-1
+        ).to(dtype)
+        h = linear(h_in, self.input_proj)  # [B, N, dim] compute dtype
+
+        # Convolutional position embedding (depthwise → Mish → pointwise).
+        pos = F.mish(dwconv(h, self.conv_pos_dw.weight, self.conv_pos_dw.bias))
+        h = (h + linear(pos, self.conv_pos_pw)) * mask_f.to(dtype)
+
+        if time_mod is None:
+            mods, fmod = self.time_modulations(t)
+            mods = mods.transpose(0, 1)  # [depth, B, 6d]
+        else:
+            mods, fmod = time_mod
+
+        cos, sin = self._rope(n, x.device)
+        heads = cfg.heads
+        # The wrapper launches the kernel on CUDA tensors (or raises on a
+        # shape it does not take) and runs the plain version on CPU tensors.
+        attend = (
+            fused_qkv_rope_attention if cfg.use_kernels
+            else fused_qkv_rope_attention_reference
+        )
+
+        def modulated_norm(h, sc, sh):
+            # sc/sh: [B', dim] f32; B' = 1 broadcasts over the batch.
+            return (
+                layernorm(h, cfg.norm_dtype) * (1.0 + sc[:, None]) + sh[:, None]
+            ).to(dtype)
+
+        for blk, mod in zip(self.blocks, mods):
+            sh_a, sc_a, g_a, sh_f, sc_f, g_f = mod.chunk(6, dim=-1)
+            u = modulated_norm(h, sc_a, sh_a)
+            qkv = linear(u, blk.qkv)
+            attn = attend(qkv, cos, sin, mask, heads)
+            attn = linear(attn, blk.attn_out)
+            h = h + g_a[:, None].to(dtype) * attn
+
+            u = modulated_norm(h, sc_f, sh_f)
+            f = F.gelu(linear(u, blk.ff1), approximate="tanh")
+            f = linear(f, blk.ff2)
+            h = h + g_f[:, None].to(dtype) * f
+
+        sh, sc = fmod.chunk(2, dim=-1)
+        h = layernorm(h) * (1.0 + sc[:, None]) + sh[:, None]
+        out = F.linear(h, self.final_proj.weight.float(), self.final_proj.bias.float())
+        return torch.where(mask[..., None], out, torch.zeros((), device=out.device))

@@ -1,0 +1,91 @@
+"""Build the package's CUDA sources into shared libraries at first use.
+
+Each ``csrc/<name>.cu`` has a plain C entry point and is compiled by
+``nvcc`` for Hopper (``sm_90a``) into ``build/vietvoice_tts_tpu_torch/`` at
+the root of the checkout (beside the package directory), then loaded with
+``ctypes``. The library's file name carries a hash of its source and flags,
+so an edited source is rebuilt and a built one is reused. Nothing is built
+when a module is imported: the CPU tests import every module on machines
+without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+from ...utils.logging import get_logger
+
+log = get_logger("kernels.build")
+
+PACKAGE_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / PACKAGE_DIR.name
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_lock = threading.Lock()
+_libraries: dict[str, ctypes.CDLL] = {}
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``: on PATH, under $CUDA_HOME, or /usr/local/cuda."""
+    candidates = [shutil.which("nvcc")]
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(str(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc"))
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if c and Path(c).is_file():
+            return c
+    raise RuntimeError(
+        "nvcc not found (searched PATH, $CUDA_HOME/bin, /usr/local/cuda/bin); "
+        "the CUDA kernels cannot be built"
+    )
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if needed and return the loaded library."""
+    with _lock:
+        lib = _libraries.get(name)
+        if lib is not None:
+            return lib
+        out = library_path(name)
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            cmd = [find_nvcc(), *NVCC_FLAGS, str(CSRC_DIR / f"{name}.cu")]
+            # Compile to a temporary name, then rename: a concurrent process
+            # never loads a half-written library.
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            t0 = time.perf_counter()
+            try:
+                proc = subprocess.run(
+                    [*cmd, "-o", tmp], capture_output=True, text=True
+                )
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed building {name}.cu:\n{proc.stderr}"
+                    )
+                os.replace(tmp, out)
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+            log.info("Built %s in %.1fs", out, time.perf_counter() - t0)
+        lib = ctypes.CDLL(str(out))
+        _libraries[name] = lib
+        return lib

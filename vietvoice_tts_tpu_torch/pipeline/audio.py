@@ -1,0 +1,109 @@
+"""Audio I/O and host-side DSP.
+
+A copy of ``vietvoice_tts_tpu/pipeline/audio.py`` with its numpy cross-fade
+only (the optional C++ host DSP library and the streaming cross-fade are not
+ported yet). Behavioral parity with the reference's ``AudioProcessor``
+(``vietvoicetts/core/audio_processor.py:12-193``): load/mono/resample →
+int16 normalize, clipped-audio repair, WAV save, and the equal-power
+cross-fade concatenator with RMS matching.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+from scipy.signal import resample_poly
+
+from ..utils.logging import get_logger
+from ..utils.wavio import read_wav, write_wav
+
+log = get_logger("audio")
+
+INT16_MAX = 32767.0
+PEAK_TARGET = 29491.0  # 90% of int16 range (reference audio_processor.py:39)
+CLIP_RESCALE = 26214.0  # 80% of int16 range (reference audio_processor.py:56)
+
+
+class AudioProcessor:
+    """Host-side audio operations (all static methods, like the reference)."""
+
+    @staticmethod
+    def load_audio(path_or_bytes: str | bytes, sample_rate: int) -> np.ndarray:
+        """Load any supported audio → mono, resampled, int16-normalized."""
+        samples, sr = read_wav(path_or_bytes)
+        mono = samples.mean(axis=1)
+        if sr != sample_rate:
+            from math import gcd
+
+            g = gcd(sr, sample_rate)
+            mono = resample_poly(mono, sample_rate // g, sr // g).astype(np.float32)
+        return AudioProcessor.normalize_to_int16(mono)
+
+    @staticmethod
+    def normalize_to_int16(audio: np.ndarray) -> np.ndarray:
+        """DC-offset removal + peak scaling to 90% of int16 range
+        (reference audio_processor.py:29-44)."""
+        audio = np.asarray(audio, dtype=np.float32)
+        audio = audio - audio.mean()
+        max_val = np.abs(audio).max() if audio.size else 0.0
+        if max_val > 0:
+            audio = audio * (PEAK_TARGET / max_val)
+        return audio.astype(np.int16)
+
+    @staticmethod
+    def fix_clipped_audio(audio: np.ndarray) -> np.ndarray:
+        """NaN/Inf → 0; rescale to 80% range when clipped
+        (reference audio_processor.py:47-58)."""
+        audio = np.nan_to_num(audio, nan=0.0, posinf=0.0, neginf=0.0)
+        max_val = np.abs(audio).max() if audio.size else 0.0
+        if max_val >= INT16_MAX:
+            return (audio * (CLIP_RESCALE / max_val)).astype(np.int16)
+        return audio
+
+    @staticmethod
+    def save_audio(audio: np.ndarray, file_path: str, sample_rate: int) -> None:
+        """Write 16-bit PCM WAV, creating parent dirs
+        (reference audio_processor.py:61-67)."""
+        write_wav(np.asarray(audio).reshape(-1), file_path, sample_rate)
+
+    @staticmethod
+    def concatenate_with_crossfade_improved(
+        generated_waves: List[np.ndarray],
+        cross_fade_duration: float,
+        sample_rate: int,
+    ) -> np.ndarray:
+        """Equal-power cross-fade with per-chunk clip repair and RMS volume
+        matching clamped to [0.7, 1.5] (reference audio_processor.py:123-193).
+        """
+        if not generated_waves:
+            return np.array([])
+        waves = [
+            AudioProcessor.fix_clipped_audio(np.asarray(w).reshape(-1))
+            for w in generated_waves
+        ]
+        if len(waves) == 1:
+            return waves[0]
+        if cross_fade_duration <= 0:
+            return np.concatenate(waves)
+
+        final = waves[0]
+        for nxt in waves[1:]:
+            n = min(int(cross_fade_duration * sample_rate), len(final), len(nxt))
+            if n <= 0:
+                final = np.concatenate([final, nxt])
+                continue
+            prev_overlap = final[-n:].astype(np.float32)
+            next_overlap = nxt[:n].astype(np.float32)
+            prev_rms = np.sqrt(np.mean(prev_overlap**2))
+            next_rms = np.sqrt(np.mean(next_overlap**2))
+            if prev_rms > 100 and next_rms > 100:
+                ratio = float(np.clip(prev_rms / next_rms, 0.7, 1.5))
+                nxt = (nxt.astype(np.float32) * ratio).astype(np.int16)
+                next_overlap = nxt[:n].astype(np.float32)
+            theta = np.linspace(0.0, np.pi / 2, n)
+            fade_out = np.cos(theta) ** 2
+            fade_in = np.sin(theta) ** 2
+            overlap = (prev_overlap * fade_out + next_overlap * fade_in).astype(np.int16)
+            final = np.concatenate([final[:-n], overlap, nxt[n:]])
+        return final

@@ -1,0 +1,330 @@
+"""TTS synthesis orchestrator (port of ``vietvoice_tts_tpu/pipeline/engine.py``).
+
+Same public surface as the JAX ``TTSEngine`` (and the reference's): the
+constructor/context-manager/cleanup, ``synthesize(...)`` returning
+``(int16 waveform, generation_time)``, and the same duration estimation and
+chunking policy (speaking rate from the reference clip, 20 s chunk cap, 1 s
+safety margin, recursive re-split). Chunks are padded into frame buckets and
+run as batches through :class:`EngineCore` (direct mode; the micro-batcher,
+streaming and meshes are not ported yet).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import time
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from ..config import ModelConfig
+from ..runtime.engine_core import EngineCore
+from ..runtime.session import ModelSessionManager
+from ..utils.logging import get_logger
+from .audio import AudioProcessor
+from .text import TextProcessor
+
+log = get_logger("engine")
+
+
+@dataclass
+class ChunkPlan:
+    """One synthesis chunk, padded into a frame bucket."""
+
+    index: int
+    text: str
+    ref_len: int  # reference frames
+    total_len: int  # reference + target frames (un-padded)
+    bucket: int  # padded frame count
+
+
+class TTSEngine:
+    """Main TTS engine."""
+
+    def __init__(self, config: Optional[ModelConfig] = None):
+        self.config = config or ModelConfig()
+        self.model_session_manager = ModelSessionManager(self.config)
+        self.model_session_manager.load_models()
+
+        if not self.model_session_manager.vocab_path:
+            raise RuntimeError("Vocabulary file not found in weight pack")
+
+        self.text_processor = TextProcessor(self.model_session_manager.vocab_path)
+        self.audio_processor = AudioProcessor()
+        self.engine_core = EngineCore(
+            self.config,
+            self.model_session_manager.params,
+            self.model_session_manager.vocab_size,
+        )
+        # Host-side cache of decoded reference audio (int16 @ sample_rate),
+        # keyed by path or content hash.
+        self.sample_cache: dict = {}
+
+    # -- Lifecycle -----------------------------------------------------------
+
+    def cleanup(self) -> None:
+        if self.model_session_manager:
+            self.model_session_manager.cleanup()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        self.cleanup()
+
+    def _load_ref(self, ref_audio) -> np.ndarray:
+        """Decoded reference audio (int16 @ sample_rate), cached per voice.
+
+        Path keys include (mtime_ns, size) so a reference file edited in
+        place is re-decoded; at most 64 voices are kept, least recently
+        used evicted first."""
+        if isinstance(ref_audio, str):
+            try:
+                st = os.stat(ref_audio)
+                key = (ref_audio, st.st_mtime_ns, st.st_size)
+            except OSError:
+                key = (ref_audio, 0, 0)
+        else:
+            key = hashlib.sha1(ref_audio).hexdigest()
+        hit = self.sample_cache.get(key)
+        if hit is None:
+            hit = self.audio_processor.load_audio(ref_audio, self.config.sample_rate)
+            while len(self.sample_cache) >= 64:
+                self.sample_cache.pop(next(iter(self.sample_cache)))
+            self.sample_cache[key] = hit
+        else:
+            # dict preserves insertion order — re-insert to mark recency.
+            self.sample_cache.pop(key)
+            self.sample_cache[key] = hit
+        return hit
+
+    # -- Input preparation (policy parity with the reference :43-131) --------
+
+    def _plan_chunks(
+        self,
+        ref_audio_f32: np.ndarray,
+        reference_text: str,
+        target_text: str,
+        speed: Optional[float] = None,
+    ) -> List[ChunkPlan]:
+        cfg = self.config
+        tp = self.text_processor
+        speed = cfg.speed if speed is None else speed
+
+        reference_text = tp.clean_text(reference_text)
+        target_text = tp.clean_text(target_text)
+
+        ref_text_len = tp.calculate_text_length(reference_text, cfg.pause_punctuation)
+        ref_audio_len = len(ref_audio_f32) // cfg.hop_length + 1
+        ref_audio_duration = len(ref_audio_f32) / cfg.sample_rate
+        speaking_rate = (
+            ref_text_len / ref_audio_duration if ref_audio_duration > 0 else 100.0
+        )
+
+        target_text_len = tp.calculate_text_length(target_text, cfg.pause_punctuation)
+        target_duration = max(
+            target_text_len / speaking_rate / speed, cfg.min_target_duration
+        )
+        total_estimated = ref_audio_duration + target_duration
+
+        if total_estimated <= cfg.max_chunk_duration:
+            chunks = [target_text]
+            log.info(
+                "Single chunk: estimated %.1fs (ref %.1fs + target %.1fs)",
+                total_estimated,
+                ref_audio_duration,
+                target_duration,
+            )
+        else:
+            safety_margin = 1.0
+            available = cfg.max_chunk_duration - ref_audio_duration - safety_margin
+            if available <= 0:
+                raise ValueError(
+                    f"Reference audio duration ({ref_audio_duration:.1f}s) exceeds "
+                    f"max chunk duration ({cfg.max_chunk_duration}s)"
+                )
+            max_chars = int(speaking_rate * available * speed)
+            raw_chunks = tp.chunk_text(target_text, max_chars=max_chars)
+            chunks = []
+            for chunk in raw_chunks:
+                c_len = tp.calculate_text_length(chunk, cfg.pause_punctuation)
+                c_dur = max(c_len / speaking_rate / speed, cfg.min_target_duration)
+                if ref_audio_duration + c_dur <= cfg.max_chunk_duration:
+                    chunks.append(chunk)
+                else:
+                    log.warning(
+                        "Chunk too long (%.1fs), splitting further...",
+                        ref_audio_duration + c_dur,
+                    )
+                    smaller = int(len(chunk) * available / c_dur * 0.9)
+                    chunks.extend(tp.chunk_text(chunk, max_chars=smaller))
+            log.info(
+                "Long text (est. %.1fs): %d chunks, %.1fs available per chunk",
+                total_estimated,
+                len(chunks),
+                available,
+            )
+
+        plans: List[ChunkPlan] = []
+        for i, chunk in enumerate(chunks):
+            c_len = tp.calculate_text_length(chunk, cfg.pause_punctuation)
+            c_dur = max(c_len / speaking_rate / speed, cfg.min_target_duration)
+            target_frames = int(c_dur * cfg.sample_rate) // cfg.hop_length + 1
+            total_len = ref_audio_len + target_frames
+            bucket = cfg.frame_bucket_for(total_len)
+            ref_len_eff = ref_audio_len
+            if total_len > bucket:
+                # Largest bucket overflow: keep the target region intact and
+                # truncate the reference prefix so output is never empty.
+                target_frames = min(target_frames, bucket - 1)
+                ref_len_eff = min(ref_audio_len, bucket - target_frames)
+                total_len = ref_len_eff + target_frames
+                log.warning(
+                    "Chunk %d exceeds largest bucket %d; ref %d→%d frames, "
+                    "target %d frames",
+                    i,
+                    bucket,
+                    ref_audio_len,
+                    ref_len_eff,
+                    target_frames,
+                )
+            plans.append(
+                ChunkPlan(
+                    index=i,
+                    text=reference_text + chunk,
+                    ref_len=ref_len_eff,
+                    total_len=total_len,
+                    bucket=bucket,
+                )
+            )
+            log.info(
+                "Chunk %d/%d: %d chars, %d frames (ref %d) → bucket %d",
+                i + 1,
+                len(chunks),
+                len(chunk),
+                total_len,
+                ref_audio_len,
+                bucket,
+            )
+        return plans
+
+    # -- Batched execution ---------------------------------------------------
+
+    def _batch_sizes(self, n: int) -> List[int]:
+        """Split n chunks into device batches ≤ max_batch_size."""
+        step = self.config.max_batch_size
+        sizes = []
+        while n > 0:
+            sizes.append(min(step, n))
+            n -= sizes[-1]
+        return sizes
+
+    def _chunk_row(self, plan: ChunkPlan, ref_audio_f32: np.ndarray):
+        """Build one device row (wave, text_ids) for a chunk plan."""
+        hop = self.config.hop_length
+        wave = np.zeros((plan.bucket * hop,), np.float32)
+        n_ref = min(len(ref_audio_f32), plan.bucket * hop)
+        wave[:n_ref] = ref_audio_f32[:n_ref]
+        ids, _ = self.text_processor.encode_padded(plan.text, plan.bucket)
+        return wave, ids
+
+    def _slice_output(self, plan: ChunkPlan, row: np.ndarray) -> np.ndarray:
+        """Trim the reference prefix + padding from a device int16 row."""
+        hop = self.config.hop_length
+        return row[plan.ref_len * hop : plan.total_len * hop]
+
+    def _run_chunks(
+        self, plans: List[ChunkPlan], ref_audio_f32: np.ndarray
+    ) -> List[np.ndarray]:
+        """Execute all chunk plans, grouped by frame bucket, batched."""
+        hop = self.config.hop_length
+        results: dict[int, np.ndarray] = {}
+
+        by_bucket: dict[int, List[ChunkPlan]] = {}
+        for p in plans:
+            by_bucket.setdefault(p.bucket, []).append(p)
+
+        for bucket, group in sorted(by_bucket.items()):
+            pos = 0
+            for bsz in self._batch_sizes(len(group)):
+                batch_plans = group[pos : pos + bsz]
+                pos += bsz
+                wave = np.zeros((bsz, bucket * hop), np.float32)
+                ref_len = np.zeros((bsz,), np.int32)
+                total_len = np.ones((bsz,), np.int32)
+                text_ids = np.full((bsz, bucket), -1, np.int32)
+                seeds = np.zeros((bsz,), np.uint32)
+                for row, p in enumerate(batch_plans):
+                    wave[row], text_ids[row] = self._chunk_row(p, ref_audio_f32)
+                    ref_len[row] = p.ref_len
+                    total_len[row] = p.total_len
+                    seeds[row] = p.index
+                out = self.engine_core.synthesize_batch(
+                    wave, ref_len, text_ids, total_len, seed=seeds
+                )
+                for row, p in enumerate(batch_plans):
+                    results[p.index] = self._slice_output(p, out[row])
+
+        return [results[i] for i in sorted(results)]
+
+    # -- Public API (parity with the reference :189-257) ---------------------
+
+    def synthesize(
+        self,
+        text: str,
+        gender: Optional[str] = None,
+        group: Optional[str] = None,
+        area: Optional[str] = None,
+        emotion: Optional[str] = None,
+        sample_iteration: Optional[int] = None,
+        output_path: Optional[str] = None,
+        reference_audio: Optional[str] = None,
+        reference_text: Optional[str] = None,
+        speed: Optional[float] = None,
+    ) -> Tuple[np.ndarray, float]:
+        """Synthesize speech → (int16 waveform, generation_time_seconds).
+
+        ``speed`` overrides ``config.speed`` per request."""
+        start_time = time.time()
+
+        ref_audio, ref_text = self.model_session_manager.select_sample(
+            gender, group, area, emotion, sample_iteration, reference_audio, reference_text
+        )
+
+        try:
+            ref_int16 = self._load_ref(ref_audio)
+            ref_f32 = ref_int16.astype(np.float32) / 32768.0
+
+            plans = self._plan_chunks(ref_f32, ref_text, text, speed=speed)
+            generated_waves = self._run_chunks(plans, ref_f32)
+
+            if len(generated_waves) > 1:
+                log.info(
+                    "Concatenating %d chunks with cross-fade (%.2fs)...",
+                    len(generated_waves),
+                    self.config.cross_fade_duration,
+                )
+            final_wave = self.audio_processor.concatenate_with_crossfade_improved(
+                generated_waves, self.config.cross_fade_duration, self.config.sample_rate
+            )
+
+            generation_time = time.time() - start_time
+
+            if output_path:
+                self.audio_processor.save_audio(
+                    final_wave, output_path, self.config.sample_rate
+                )
+                log.info("Audio saved to: %s", output_path)
+
+            return final_wave, generation_time
+        except Exception as e:
+            raise RuntimeError(f"Speech synthesis failed: {str(e)}") from e
+
+    def validate_configuration(self, reference_audio: Optional[str] = None) -> bool:
+        """Validate configuration with reference audio (reference :259-268)."""
+        if reference_audio is None:
+            log.info("Configuration valid: using built-in voice samples")
+            return True
+        return self.config.validate_with_reference_audio(reference_audio)
