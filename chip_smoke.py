@@ -11,21 +11,32 @@ unavailable or the package is not beside it. Phases, in order (any failed
 check raises):
 
 1. The card's name and power limit, as ``nvidia-smi`` reports them.
-2. Build every CUDA kernel of the serving path from ``csrc/``.
+2. Build every CUDA kernel of the package from ``csrc/``, all at once.
 3. Each kernel against its plain PyTorch version on the card, at the shapes
    the serving path gives it, in float32 (max-abs ≤ 1e-4: both sides are
    true f32 with TF32 off) and bfloat16 (max-abs ≤ 1e-2, about one bf16 ulp
-   of an output below 2), with kernel and plain times.
-4. Whole-path parity at the full width of the default model: the mel latent
-   of ``EngineCore.mel_latent_batch`` from one injected noise, with the
-   kernel and with the plain path, on a seeded pack whose AdaLN gates are
-   opened (the shipped pack's zero gates would multiply attention by 0), in
-   float32 (max-abs ≤ 1e-2, the BASELINE mel gate) and in the serving
-   bfloat16 (bounded by its measured noise floor, see MEL_TOLERANCE), with
-   exactly 22 × 31 = 682 launches per kernel solve.
+   of an output below 2), with kernel and plain times; for
+   ``flash_attention`` also with v as a strided view of a packed projection
+   (the DiT's layout) and beside ``scaled_dot_product_attention``, a
+   yardstick that the package never calls.
+4. Whole-path parity at full width, for both attention routes of the DiT:
+   the default model (8 heads × 128, the fused RoPE kernel) and the same
+   widths split 32 × 32 (the split-heads route, ``flash_attention``). The
+   mel latent of ``EngineCore.mel_latent_batch`` from one injected noise,
+   with the kernel and with the plain path, on a seeded pack whose AdaLN
+   gates are opened (the shipped pack's zero gates would multiply attention
+   by 0), in float32 (max-abs ≤ 1e-2, the BASELINE mel gate) and in the
+   serving bfloat16 (bounded by its measured noise floor, see
+   MEL_TOLERANCE), with exactly 22 × 31 = 682 launches of the route's kernel
+   per solve and none of the other. Then the sampler caches at 32 × 32, each
+   against its own plain-path run: the CFG cache (682 launches) and the
+   deep-block cache (16 × 22 + 15 × 7 = 457).
 5. Serving through ``TTSApi``: a short sentence twice (must be identical),
    a voice clone from a WAV written here, and a long text that plans to ≥ 2
-   chunks in one batch; launches must be 682 per chunk batch.
+   chunks in one batch (682 launches per chunk batch); the long text again
+   through ``synthesize_streaming`` (≥ 2 pieces, 682 launches per chunk,
+   held against the blocking output within STREAM_TOLERANCE); and a short
+   request on the 32 × 32 model.
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``. Weights are random, made from a seed, and
@@ -34,6 +45,7 @@ kept under ``build/chip_smoke/`` in the checkout.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
 import statistics
@@ -59,6 +71,24 @@ KERNEL_SHAPES = [
     (2, 437, 8, 128),
 ]
 LATENCY_SHAPE = (2, 448, 8, 128)
+# Phase-3 shapes of flash_attention, (B, H, N, D): 32×32 is the default
+# model's width split into heads the fused kernel does not take (its batch-1
+# latency shape first); the rest cover every head_dim the kernel has.
+FLASH_SHAPES = [
+    (2, 32, 448, 32),
+    (2, 32, 2048, 32),
+    (16, 32, 1024, 32),
+    (2, 16, 512, 64),
+    (2, 8, 437, 128),
+    (2, 4, 448, 256),
+    (2, 8, 512, 96),
+]
+FLASH_LATENCY_SHAPE = (2, 32, 448, 32)
+# Published peaks of one H100 SXM (NVIDIA's data sheet; dense): device
+# memory bytes/s, and flop/s by input type (bf16 on the tensor cores,
+# float32 on the SIMT pipes, which is what true-float32 parity runs on).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOLERANCE = {"float32": 1e-4, "bfloat16": 1e-2}
 # Std of the AdaLN gate perturbation (blocks.ada, final_ada) at dim 1024:
 # gates of std ≈ 0.01·|t_emb| — open enough that every block's attention
@@ -73,6 +103,15 @@ ADA_STD = 0.01
 # mean-abs (gate std 0.0025..0.01), as much as the kernel does. The bf16
 # bound is about three times that floor.
 MEL_TOLERANCE = {"float32": (1e-2, 1e-3), "bfloat16": (5e-2, 1e-2)}
+# Streaming against blocking synthesis of the same text, in int16 samples
+# (of 32767): (largest difference, mean absolute difference). Streaming runs
+# each chunk as a batch of one where blocking runs a bucket's chunks as one
+# batch, and cuBLAS may sum in another order at another batch size; bf16
+# rounding carries that through 31 steps and the vocoder. Measured on an
+# H100 (700 W) on the three-chunk text below: 14 and 0.50; the bound is
+# about four times that. (In float32 at small widths the largest difference
+# is 2, tests/test_torch_cuda.py.)
+STREAM_TOLERANCE = (64, 2.0)
 
 
 def log(msg: str) -> None:
@@ -110,15 +149,34 @@ def cuda_ms(fn, samples: int = 10, calls: int = 10) -> float:
 
 
 def phase_build() -> None:
+    """Build every kernel, one ``nvcc`` per source, all started together."""
     from vietvoice_tts_tpu_torch.ops.kernels.build import load_library
 
+    names = ("fused_rope_attention", "flash_attention")
     t0 = time.perf_counter()
-    load_library("fused_rope_attention")
-    log(f"[2] built fused_rope_attention in {time.perf_counter() - t0:.2f} s")
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(load_library, names))
+    log(f"[2] built {', '.join(names)} in {time.perf_counter() - t0:.2f} s")
+
+
+def bound(tensors, flops: float, dtype_name: str) -> tuple[float, str]:
+    """(least ms the card could take, "bytes" or "operations"): each input
+    read once and each output written once at the memory rate, against the
+    operations at the peak rate for the inputs' type."""
+    n_bytes = sum(t.numel() * t.element_size() for t in tensors)
+    by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def _valid_lengths(b: int, n: int) -> list[int]:
+    """Rows alternate between ~30% padded keys and fully valid."""
+    return [n if i % 2 else n - max(1, (3 * n) // 10) for i in range(b)]
 
 
 def phase_kernels(card: str) -> dict:
-    """Kernel vs plain version at every shape and dtype; returns the record."""
+    """The fused RoPE kernel vs its plain version at every shape and dtype;
+    returns the record."""
     import torch
 
     from vietvoice_tts_tpu_torch.ops.kernels import fused_rope_attention as fra
@@ -126,7 +184,7 @@ def phase_kernels(card: str) -> dict:
 
     dev = torch.device("cuda")
     worst = 0.0
-    timing = {}
+    measured = {}
     for b, n, heads, d in KERNEL_SHAPES:
         for dtype_name, tol in TOLERANCE.items():
             dtype = getattr(torch, dtype_name)
@@ -134,8 +192,7 @@ def phase_kernels(card: str) -> dict:
             qkv = torch.from_numpy(
                 rng.standard_normal((b, n, 3 * heads * d)).astype(np.float32)
             ).to(dev, dtype)
-            # Rows alternate between fully valid and ~30% padded keys.
-            valid = [n if i % 2 else n - max(1, (3 * n) // 10) for i in range(b)]
+            valid = _valid_lengths(b, n)
             mask = torch.from_numpy(
                 np.arange(n)[None, :] < np.asarray(valid)[:, None]
             ).to(dev)
@@ -157,13 +214,16 @@ def phase_kernels(card: str) -> dict:
             plain_ms = cuda_ms(
                 lambda: fra.fused_qkv_rope_attention_reference(qkv, cos, sin, mask, heads)
             )
-            timing[(b, n, heads, d, dtype_name)] = (ms, plain_ms)
+            # Valid keys only: a padded key gets no weight.
+            flops = 4.0 * heads * d * n * sum(valid)
+            bound_ms, bound_by = bound((qkv, cos, sin, mask, out), flops, dtype_name)
+            measured[(b, n, heads, d, dtype_name)] = (ms, plain_ms, bound_ms, bound_by)
             log(
-                f"[3] B={b} N={n} H={heads} D={d} {dtype_name}: max-abs {err:.3e} "
-                f"(tol {tol:.0e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-                f"[{card}]"
+                f"[3] fused_rope B={b} N={n} H={heads} D={d} {dtype_name}: max-abs "
+                f"{err:.3e} (tol {tol:.0e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {bound_ms:.5f} ms ({bound_by}) [{card}]"
             )
-    ms, plain_ms = timing[(*LATENCY_SHAPE, "bfloat16")]
+    ms, plain_ms, bound_ms, bound_by = measured[(*LATENCY_SHAPE, "bfloat16")]
     return {
         "name": "fused_qkv_rope_attention",
         "route": "cuda",
@@ -173,6 +233,88 @@ def phase_kernels(card: str) -> dict:
         "max_abs_err": worst,
         "ms": ms,
         "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call does RoPE plus attention
+    }
+
+
+def phase_flash_kernel(card: str) -> dict:
+    """flash_attention vs ``ops.attention.attention`` at every shape, dtype
+    and layout; returns the record (times at the latency shape, bf16, v as
+    the DiT passes it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vietvoice_tts_tpu_torch.ops.attention import NEG_INF, attention
+    from vietvoice_tts_tpu_torch.ops.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    worst = 0.0
+    measured = {}
+    for b, heads, n, d in FLASH_SHAPES:
+        for dtype_name, tol in TOLERANCE.items():
+            dtype = getattr(torch, dtype_name)
+            rng = np.random.default_rng(b * 100003 + n * 17 + heads)
+            qkv = torch.from_numpy(
+                rng.standard_normal((b, n, 3 * heads * d)).astype(np.float32)
+            ).to(dev, dtype)
+            valid = _valid_lengths(b, n)
+            mask = torch.from_numpy(
+                np.arange(n)[None, :] < np.asarray(valid)[:, None]
+            ).to(dev)
+            views = [t.reshape(b, n, heads, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1)]
+            layouts = {
+                "contiguous": tuple(t.contiguous() for t in views),
+                # The DiT's split-heads route: q and k fresh after RoPE, v a
+                # view into the packed projection.
+                "packed-v": (views[0].contiguous(), views[1].contiguous(), views[2]),
+            }
+            for layout, (q, k, v) in layouts.items():
+                out = fa.flash_attention(q, k, v, mask)
+                ref = attention(q, k, v, mask)
+                torch.cuda.synchronize()
+                err = max(
+                    (out[i, :, :nv].float() - ref[i, :, :nv].float()).abs().max().item()
+                    for i, nv in enumerate(valid)
+                )
+                if not np.isfinite(err) or err > tol:
+                    raise AssertionError(
+                        f"flash kernel vs plain at B={b} H={heads} N={n} D={d} "
+                        f"{dtype_name} {layout}: max-abs {err:.3e} > {tol:.0e}"
+                    )
+                worst = max(worst, err)
+                ms = cuda_ms(lambda: fa.flash_attention(q, k, v, mask))
+                plain_ms = cuda_ms(lambda: attention(q, k, v, mask))
+                bias = torch.zeros((b, 1, 1, n), dtype=dtype, device=dev)
+                bias = bias.masked_fill(~mask[:, None, None, :], NEG_INF)
+                library_ms = cuda_ms(
+                    lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+                )
+                flops = 4.0 * heads * d * n * sum(valid)
+                bound_ms, bound_by = bound((q, k, v, mask, out), flops, dtype_name)
+                measured[(b, heads, n, d, dtype_name, layout)] = (
+                    ms, plain_ms, library_ms, bound_ms, bound_by)
+                log(
+                    f"[3] flash B={b} H={heads} N={n} D={d} {dtype_name} {layout}: "
+                    f"max-abs {err:.3e} (tol {tol:.0e}); kernel {ms:.4f} ms, plain "
+                    f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
+                    f"({bound_by}) [{card}]"
+                )
+    ms, plain_ms, library_ms, bound_ms, bound_by = measured[
+        (*FLASH_LATENCY_SHAPE, "bfloat16", "packed-v")]
+    return {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "vietvoice_tts_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "vietvoice_tts_tpu/ops/pallas/flash_attention.py:53",
+        "launches": None,
+        "max_abs_err": worst,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
     }
 
 
@@ -193,11 +335,63 @@ def _perturbed_gates(params: dict, seed: int = 1) -> dict:
     return {**params, "dit": dit}
 
 
-def phase_whole_path(cfg, card: str) -> None:
+def _reset_launches() -> None:
+    from vietvoice_tts_tpu_torch.ops.kernels import flash_attention as fa
+    from vietvoice_tts_tpu_torch.ops.kernels import fused_rope_attention as fra
+
+    fra.launches = fa.launches = 0
+
+
+def _launches() -> dict:
+    from vietvoice_tts_tpu_torch.ops.kernels import flash_attention as fa
+    from vietvoice_tts_tpu_torch.ops.kernels import fused_rope_attention as fra
+
+    return {"fused_rope": fra.launches, "flash": fa.launches}
+
+
+def _kernel_vs_plain_latent(label, cfg, params, vocab_size, args, x0, total_len,
+                            route, want_launches, card) -> None:
+    """One config's mel latent with the kernel and with the plain path, in
+    both dtypes; ``route`` names the kernel that must do all the launches."""
     import torch
 
-    from vietvoice_tts_tpu_torch.ops.kernels import fused_rope_attention as fra
     from vietvoice_tts_tpu_torch.runtime.engine_core import EngineCore
+
+    for dtype, (max_tol, mean_tol) in MEL_TOLERANCE.items():
+        latents = {}
+        for use_kernels in (True, False):
+            run_cfg = dataclasses.replace(cfg, compute_dtype=dtype, use_kernels=use_kernels)
+            core = EngineCore(run_cfg, params, vocab_size)
+            _reset_launches()
+            t0 = time.perf_counter()
+            lat = core.mel_latent_batch(*args, x0=x0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = _launches()
+            want = {k: (want_launches if use_kernels and k == route else 0) for k in got}
+            if got != want:
+                raise AssertionError(
+                    f"{label} {dtype} use_kernels={use_kernels}: launches {got}, want {want}"
+                )
+            if lat.shape != x0.shape or not np.isfinite(lat).all():
+                raise AssertionError(f"{label}: bad {dtype} latent, shape {lat.shape}")
+            latents[use_kernels] = lat[:, :total_len]
+            log(f"[4] {label} {dtype} mel latent, use_kernels={use_kernels}: "
+                f"{wall * 1e3:.1f} ms (first solve of a fresh core), launches {got}, "
+                f"max |latent| {np.abs(lat).max():.3f} [{card}]")
+            del core
+            torch.cuda.empty_cache()
+        diff = np.abs(latents[True] - latents[False])
+        err, mean = float(diff.max()), float(diff.mean())
+        log(f"[4] {label} {dtype} whole-path mel latent, kernel vs plain: max-abs "
+            f"{err:.3e} (tol {max_tol:.0e}), mean-abs {mean:.3e} (tol {mean_tol:.0e}) "
+            f"on {total_len} valid frames")
+        if not (err <= max_tol and mean <= mean_tol):
+            raise AssertionError(f"{label} {dtype} whole-path kernel vs plain outside tolerance")
+
+
+def phase_whole_path(cfg, cfg32, card: str) -> None:
+    from vietvoice_tts_tpu_torch.pipeline.audio import AudioProcessor
     from vietvoice_tts_tpu_torch.runtime.session import ModelSessionManager
 
     t0 = time.perf_counter()
@@ -210,8 +404,6 @@ def phase_whole_path(cfg, card: str) -> None:
     b, n, ref_len, total_len = 1, 448, 188, 439
     rng = np.random.default_rng(4)
     ref_audio, _ = mgr.select_sample()
-    from vietvoice_tts_tpu_torch.pipeline.audio import AudioProcessor
-
     ref = AudioProcessor.load_audio(ref_audio, cfg.sample_rate).astype(np.float32) / 32768.0
     wave = np.zeros((b, n * hop), np.float32)
     wave[0, : min(len(ref), n * hop)] = ref[: n * hop]
@@ -220,37 +412,25 @@ def phase_whole_path(cfg, card: str) -> None:
     x0 = rng.standard_normal((b, n, cfg.n_mels)).astype(np.float32)
     args = (wave, np.array([ref_len]), ids, np.array([total_len]))
 
-    for dtype, (max_tol, mean_tol) in MEL_TOLERANCE.items():
-        latents = {}
-        for use_kernels in (True, False):
-            run_cfg = dataclasses.replace(cfg, compute_dtype=dtype, use_kernels=use_kernels)
-            core = EngineCore(run_cfg, params, mgr.vocab_size)
-            fra.launches = 0
-            t0 = time.perf_counter()
-            lat = core.mel_latent_batch(*args, x0=x0)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = fra.launches
-            want = cfg.dit_depth * (cfg.nfe_step - 1) if use_kernels else 0
-            if launches != want:
-                raise AssertionError(
-                    f"{dtype} use_kernels={use_kernels}: {launches} launches, want {want}"
-                )
-            if lat.shape != (b, n, cfg.n_mels) or not np.isfinite(lat).all():
-                raise AssertionError(f"bad {dtype} latent: shape {lat.shape}")
-            latents[use_kernels] = lat[:, :total_len]
-            log(f"[4] {dtype} mel latent, use_kernels={use_kernels}: {wall * 1e3:.1f} ms "
-                f"(first solve of a fresh core), {launches} launches, "
-                f"max |latent| {np.abs(lat).max():.3f} [{card}]")
-            del core
-            torch.cuda.empty_cache()
-        diff = np.abs(latents[True] - latents[False])
-        err, mean = float(diff.max()), float(diff.mean())
-        log(f"[4] {dtype} whole-path mel latent, kernel vs plain: max-abs {err:.3e} "
-            f"(tol {max_tol:.0e}), mean-abs {mean:.3e} (tol {mean_tol:.0e}) "
-            f"on {total_len} valid frames")
-        if not (err <= max_tol and mean <= mean_tol):
-            raise AssertionError(f"{dtype} whole-path kernel vs plain outside tolerance")
+    depth, evals = cfg.dit_depth, cfg.nfe_step - 1
+    shallow = 7
+    full_evals = -(-evals // 2)  # every second eval, the first included
+    runs = [
+        # The default model: the fused RoPE kernel in every block and step.
+        ("8x128", cfg, "fused_rope", depth * evals),
+        # The same widths split 32 × 32: the split-heads route.
+        ("32x32", cfg32, "flash", depth * evals),
+        # CFG cache: doubled and cond-only evals alike launch once per block.
+        ("32x32 uncond_interval=2",
+         dataclasses.replace(cfg32, nfe_uncond_interval=2), "flash", depth * evals),
+        # Deep-block cache: full depth every second eval, 7 blocks between.
+        ("32x32 deep_cache_interval=2",
+         dataclasses.replace(cfg32, nfe_deep_cache_interval=2, nfe_deep_cache_blocks=shallow),
+         "flash", full_evals * depth + (evals - full_evals) * shallow),
+    ]
+    for label, run_cfg, route, want in runs:
+        _kernel_vs_plain_latent(label, run_cfg, params, mgr.vocab_size, args, x0,
+                                total_len, route, want, card)
 
 
 def _write_clone_wav(path: Path, sample_rate: int) -> None:
@@ -274,11 +454,28 @@ def _chunk_batches(engine, text: str, **voice) -> tuple[int, int]:
     return sum(len(engine._batch_sizes(c)) for c in buckets.values()), len(plans)
 
 
-def phase_serving(cfg, card: str, smi: str) -> int:
+def _timed_request(name, cfg, smi, synthesize):
+    """Run one blocking request, check its audio, log its wall time."""
+    import torch
+
+    t0 = time.perf_counter()
+    wave, _ = synthesize()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if wave.dtype != np.int16 or wave.size == 0 or not np.any(wave):
+        raise AssertionError(f"{name}: bad audio dtype={wave.dtype} size={wave.size}")
+    secs = wave.size / cfg.sample_rate
+    log(f"[5] {name}: {wall * 1e3:.1f} ms wall, {secs:.2f} s audio, "
+        f"{secs / wall:.2f} audio-s/s [{smi}]")
+    return wave
+
+
+def phase_serving(cfg, cfg32, smi: str) -> dict:
+    """Serve through ``TTSApi`` on both models; returns each kernel's launch
+    count over the requests (counters set to 0 just before, read just after)."""
     import torch
 
     from vietvoice_tts_tpu_torch import TTSApi
-    from vietvoice_tts_tpu_torch.ops.kernels import fused_rope_attention as fra
 
     clone_wav = WORK / "clone_voice.wav"
     _write_clone_wav(clone_wav, cfg.sample_rate)
@@ -295,41 +492,77 @@ def phase_serving(cfg, card: str, smi: str) -> int:
           "reference_text": "Xin chào, đây là giọng nói của tôi."}),
         ("long", long_text, {}),
     ]
+    per_batch = cfg.dit_depth * (cfg.nfe_step - 1)
     api = TTSApi(cfg)
     engine = api.engine  # loads the pack before the counted run
     expected = 0
     for name, text, voice in requests:
         n_batches, n_chunks = _chunk_batches(engine, text, **voice)
-        expected += n_batches * cfg.dit_depth * (cfg.nfe_step - 1)
-        if name == "long" and not (n_chunks >= 2 and n_batches == 1):
-            raise AssertionError(
-                f"long text plans to {n_chunks} chunks in {n_batches} batches; "
-                "want ≥ 2 chunks in one batch"
-            )
+        expected += n_batches * per_batch
         log(f"[5] {name}: {n_chunks} chunk(s) in {n_batches} batch(es)")
+        if name == "long":
+            if not (n_chunks >= 2 and n_batches == 1):
+                raise AssertionError(
+                    f"long text plans to {n_chunks} chunks in {n_batches} batches; "
+                    "want ≥ 2 chunks in one batch"
+                )
+            # Streaming (run twice) dispatches every chunk as a batch of one.
+            expected += 2 * n_chunks * per_batch
 
-    outputs = {}
-    fra.launches = 0  # count the main path's run only
-    for name, text, voice in requests:
-        t0 = time.perf_counter()
-        wave, _ = api.synthesize(text, **voice)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        if wave.dtype != np.int16 or wave.size == 0 or not np.any(wave):
-            raise AssertionError(f"{name}: bad audio dtype={wave.dtype} size={wave.size}")
-        secs = wave.size / cfg.sample_rate
-        outputs[name] = wave
-        log(f"[5] {name}: {wall * 1e3:.1f} ms wall, {secs:.2f} s audio, "
-            f"{secs / wall:.2f} audio-s/s [{smi}]")
-    launches = fra.launches
-    if launches != expected:
-        raise AssertionError(f"serving ran {launches} kernel launches, want {expected}")
+    _reset_launches()  # count the main path's run only
+    outputs = {
+        name: _timed_request(name, cfg, smi, lambda: api.synthesize(text, **voice))
+        for name, text, voice in requests
+    }
     if not np.array_equal(outputs["short"], outputs["short-again"]):
         raise AssertionError("the same short request gave different audio")
-    log(f"[5] serving: {launches} kernel launches (682 per chunk batch), "
-        "short request deterministic")
+
+    # Twice: the first streaming request allocates its pinned host buffers.
+    timer = engine.engine_core.timer
+    for name in ("streaming long", "streaming long again"):
+        timer.reset()
+        t0 = time.perf_counter()
+        pieces, first = [], None
+        for piece in api.synthesize_streaming(long_text):
+            if first is None:
+                first = time.perf_counter() - t0
+            pieces.append(piece)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stream, blocking = np.concatenate(pieces), outputs["long"]
+        if len(pieces) < 2 or any(p.dtype != np.int16 for p in pieces):
+            raise AssertionError(f"{name} gave {len(pieces)} piece(s)")
+        if stream.shape != blocking.shape:
+            raise AssertionError(f"{name}: {stream.shape} vs blocking {blocking.shape} samples")
+        diff = np.abs(stream.astype(np.int32) - blocking.astype(np.int32))
+        max_diff, mean_diff = int(diff.max()), float(diff.mean())
+        log(f"[5] {name}: {len(pieces)} pieces, first after {first * 1e3:.1f} ms, "
+            f"all after {wall * 1e3:.1f} ms ({timer.totals['chunk_dispatch'] * 1e3:.1f} ms "
+            f"of it dispatching, {timer.totals['chunk_fetch'] * 1e3:.1f} ms fetching); "
+            f"against blocking: largest sample difference "
+            f"{max_diff} (tol {STREAM_TOLERANCE[0]}), mean {mean_diff:.4f} "
+            f"(tol {STREAM_TOLERANCE[1]}) of 32767 [{smi}]")
+        if max_diff > STREAM_TOLERANCE[0] or mean_diff > STREAM_TOLERANCE[1]:
+            raise AssertionError(f"{name} differs from blocking beyond STREAM_TOLERANCE")
+
+    launches = _launches()
+    if launches != {"fused_rope": expected, "flash": 0}:
+        raise AssertionError(f"8x128 serving launched {launches}, want {expected} fused_rope")
+    log(f"[5] 8x128 serving: {expected} fused_rope launches ({per_batch} per chunk "
+        "batch and per streamed chunk), short request deterministic")
     api.cleanup()
-    return launches
+
+    # The same pack served with 32 heads of 32: the split-heads route.
+    api32 = TTSApi(cfg32)
+    n_batches, n_chunks = _chunk_batches(api32.engine, short)
+    _reset_launches()
+    _timed_request("short 32x32", cfg32, smi, lambda: api32.synthesize(short))
+    launches32 = _launches()
+    if launches32 != {"fused_rope": 0, "flash": n_batches * per_batch}:
+        raise AssertionError(f"32x32 serving launched {launches32}")
+    log(f"[5] 32x32 serving: {launches32['flash']} flash launches")
+    api32.cleanup()
+    return {"fused_rope": launches["fused_rope"], "flash": launches32["flash"]}
 
 
 def main() -> int:
@@ -355,15 +588,23 @@ def main() -> int:
     log(f"[1] {smi}")
     phase_build()
     torch.cuda.synchronize()
-    record = phase_kernels(card)
+    fused_record = phase_kernels(card)
+    flash_record = phase_flash_kernel(card)
     torch.cuda.synchronize()
     cfg = ModelConfig(device="cuda", model_cache_dir=str(WORK / "models"))
-    phase_whole_path(cfg, card)
+    # The default model's widths with a head split the fused kernel does not
+    # take (head_dim 32); the weights do not depend on the split.
+    cfg32 = dataclasses.replace(cfg, dit_heads=32)
+    phase_whole_path(cfg, cfg32, card)
     torch.cuda.synchronize()
-    record["launches"] = phase_serving(cfg, card, smi)
+    launches = phase_serving(cfg, cfg32, smi)
     torch.cuda.synchronize()
+    fused_record["launches"] = launches["fused_rope"]
+    flash_record["launches"] = launches["flash"]
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel was never launched on the main path: {launches}")
 
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": [fused_record, flash_record]}))
     print(smi)
     print(json.dumps({
         "ok": True,

@@ -10,12 +10,21 @@ Tolerances: float32 max-abs 1e-4 (both sides true float32, TF32 off),
 bfloat16 max-abs 1e-2 (about one bf16 ulp of an output below 2).
 """
 
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from vietvoice_tts_tpu_torch.models import dit as tdit
 from vietvoice_tts_tpu_torch.models.params import dit_state
+from vietvoice_tts_tpu_torch.models.sampler import SamplerConfig, flow_matching_sample
+from vietvoice_tts_tpu_torch.ops.attention import attention
+from vietvoice_tts_tpu_torch.ops.kernels import flash_attention as fa
 from vietvoice_tts_tpu_torch.ops.kernels import fused_rope_attention as fra
 from vietvoice_tts_tpu_torch.ops.rope import rope_tables
 
@@ -75,15 +84,20 @@ def test_cuda_wrapper_raises_on_mixed_devices(cuda_device):
 
 
 def test_cuda_wrapper_and_dit_raise_on_unsupported_head_dim(cuda_device):
-    """head_dim 96 has no kernel: on the card the wrapper raises, and so does
-    a DiT built with use_kernels; neither falls back to the plain version."""
+    """head_dim 96 is not the fused kernel's: its wrapper raises on the card.
+    head_dim 48 has no kernel at all: the flash_attention wrapper raises, and
+    so does a DiT built with use_kernels; nothing falls back to a plain
+    version."""
     qkv, cos, sin, mask = _attention_inputs(1, 64, 2, 96, [64], cuda_device,
                                             torch.float32)
-    before = fra.launches
+    before = fra.launches, fa.launches
     with pytest.raises(ValueError, match="head_dim"):
         fra.fused_qkv_rope_attention(qkv, cos, sin, mask, 2)
+    q = torch.zeros((1, 2, 64, 48), device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q, q, q, None)
 
-    dims = dict(dim=192, depth=1, heads=2, ff_mult=2, n_mels=16, text_dim=32,
+    dims = dict(dim=96, depth=1, heads=2, ff_mult=2, n_mels=16, text_dim=32,
                 text_conv_layers=1, vocab_size=40)
     tree = tdit.init_dit_params(np.random.default_rng(0), tdit.DiTConfig(**dims))
     dit = tdit.DiT(tdit.DiTConfig(**dims, compute_dtype=torch.float32, use_kernels=True))
@@ -96,7 +110,7 @@ def test_cuda_wrapper_and_dit_raise_on_unsupported_head_dim(cuda_device):
     with torch.inference_mode(), pytest.raises(ValueError, match="head_dim"):
         dit.forward_embedded(x, x, dit.text_embed(ids), torch.zeros(b, device=cuda_device),
                              valid)
-    assert fra.launches == before
+    assert (fra.launches, fa.launches) == before
 
 
 def test_cuda_dit_forward_runs_kernel_in_every_block(cuda_device):
@@ -133,3 +147,200 @@ def test_cuda_dit_forward_runs_kernel_in_every_block(cuda_device):
     assert counts == {True: dims["depth"], False: 0}
     err = (outs[True] - outs[False]).abs().max().item()
     assert np.isfinite(err) and err <= 1e-4
+
+
+# -- flash_attention (unpacked q, k, v; the DiT's split-heads route) ----------
+
+
+def _qkv_inputs(b, heads, n, d, valid, device, dtype, packed, seed=11):
+    """q, k, v [B, H, N, D] and mask; with ``packed`` v is a strided view of
+    a packed [B, N, 3·H·D] projection, as in the DiT's split-heads route."""
+    rng = np.random.default_rng(seed)
+    qkv = torch.from_numpy(
+        rng.standard_normal((b, n, 3 * heads * d)).astype(np.float32)
+    ).to(device, dtype)
+    q, k, v = (t.reshape(b, n, heads, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+    if not packed:
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    mask = torch.from_numpy(np.arange(n)[None, :] < np.asarray(valid)[:, None]).to(device)
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("b,heads,n,d", [(2, 4, 437, 32), (2, 3, 300, 64), (2, 3, 200, 96),
+                                         (2, 2, 437, 128), (2, 2, 200, 256)])
+def test_cuda_flash_kernel_matches_plain(cuda_device, dtype, tol, packed, b, heads, n, d):
+    valid = [n - 77, n]
+    q, k, v, mask = _qkv_inputs(b, heads, n, d, valid, cuda_device, dtype, packed)
+    before = fa.launches
+    out = fa.flash_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    assert out.shape == q.shape and out.dtype == dtype
+    # [B, N, H, D] memory order: merging the heads is a free reshape.
+    assert out.transpose(1, 2).is_contiguous()
+    ref = attention(q, k, v, mask)
+    for row, nv in enumerate(valid):
+        err = (out[row, :, :nv].float() - ref[row, :, :nv].float()).abs().max().item()
+        assert err <= tol
+
+
+def test_cuda_flash_kernel_without_mask_and_with_a_fully_padded_row(cuda_device):
+    """No mask is all keys valid. A batch row whose keys are all padded gets
+    uniform weights (as the plain version gives it) and no NaN anywhere."""
+    q, k, v, _ = _qkv_inputs(2, 2, 150, 32, [150, 150], cuda_device, torch.float32, True)
+    out = fa.flash_attention(q, k, v, None)
+    assert (out - attention(q, k, v, None)).abs().max().item() <= 1e-4
+    mask = torch.zeros((2, 150), dtype=torch.bool, device=cuda_device)
+    mask[1, :100] = True
+    out = fa.flash_attention(q, k, v, mask)
+    ref = attention(q, k, v, mask)
+    assert torch.isfinite(out).all()
+    assert (out[1, :, :100] - ref[1, :, :100]).abs().max().item() <= 1e-4
+    assert (out[0] - ref[0]).abs().max().item() <= 1e-4
+
+
+def test_cuda_flash_wrapper_refusals_and_attention_switch(cuda_device):
+    q, k, v, mask = _qkv_inputs(1, 2, 64, 32, [64], cuda_device, torch.float32, False)
+    before = fa.launches
+    with pytest.raises(ValueError, match="unit stride"):
+        fa.flash_attention(q, k, v.transpose(2, 3).contiguous().transpose(2, 3), mask)
+    with pytest.raises(ValueError, match="mask"):
+        fa.flash_attention(q, k, v, mask.cpu())
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), k.half(), v.half(), mask)
+    assert fa.launches == before
+    out = attention(q, k, v, mask, use_kernels=True)  # the package's entry
+    assert fa.launches == before + 1
+    assert (out - attention(q, k, v, mask)).abs().max().item() <= 1e-4
+
+
+def _gated_dit(dims, device, use_kernels, seed=0):
+    rng = np.random.default_rng(seed)
+    tree = tdit.init_dit_params(rng, tdit.DiTConfig(**dims))
+    for gates in (tree["blocks"]["ada"], tree["final_ada"]):
+        for key in gates:
+            gates[key] = rng.normal(0.0, 0.05, gates[key].shape).astype(np.float32)
+    dit = tdit.DiT(tdit.DiTConfig(**dims, compute_dtype=torch.float32,
+                                  use_kernels=use_kernels))
+    dit.load_state_dict(dit_state(tree, torch.float32), assign=True)
+    return dit.to(device).eval()
+
+
+@pytest.mark.parametrize("dim,heads", [(64, 2), (288, 3), (512, 2)])
+def test_cuda_dit_split_heads_route_runs_flash_kernel(cuda_device, dim, heads):
+    """head_dim 32, 96 and 256: the DiT takes the split-heads route, one
+    flash_attention launch per block and none of the fused kernel, and
+    agrees with the plain path (gates opened)."""
+    dims = dict(dim=dim, depth=3, heads=heads, ff_mult=2, n_mels=16, text_dim=32,
+                text_conv_layers=1, vocab_size=40)
+    rng = np.random.default_rng(1)
+    b, n = 2, 200
+    x, cond = (torch.from_numpy(rng.standard_normal((b, n, 16)).astype(np.float32))
+               .to(cuda_device) for _ in range(2))
+    ids = torch.from_numpy(rng.integers(-1, 40, (b, n))).to(cuda_device)
+    mask = torch.from_numpy(np.arange(n)[None, :] < np.array([150, n])[:, None])
+    mask = mask.to(cuda_device)
+    t = torch.tensor([0.3, 0.7], device=cuda_device)
+    outs, counts = {}, {}
+    for use_kernels in (True, False):
+        dit = _gated_dit(dims, cuda_device, use_kernels)
+        before = fa.launches, fra.launches
+        with torch.inference_mode():
+            outs[use_kernels] = dit.forward_embedded(x, cond, dit.text_embed(ids), t, mask)
+        torch.cuda.synchronize()
+        counts[use_kernels] = (fa.launches - before[0], fra.launches - before[1])
+    assert counts == {True: (3, 0), False: (0, 0)}
+    err = (outs[True] - outs[False]).abs().max().item()
+    assert np.isfinite(err) and err <= 1e-4
+
+
+@pytest.mark.parametrize("cache,want", [
+    ({}, 7 * 4),
+    ({"uncond_interval": 2}, 7 * 4),  # 4 doubled + 3 cond-only evals
+    ({"deep_cache_interval": 2, "deep_cache_blocks": 1}, 4 * 4 + 3 * 1),
+])
+def test_cuda_sampler_cache_launch_counts(cuda_device, cache, want):
+    """8 grid points = 7 evals of a 4-block DiT; each cache launches the
+    kernel as often as its schedule says and agrees with its plain run."""
+    dims = dict(dim=64, depth=4, heads=2, ff_mult=2, n_mels=16, text_dim=32,
+                text_conv_layers=1, vocab_size=40)
+    rng = np.random.default_rng(2)
+    b, n = 2, 96
+    cond, x0 = (torch.from_numpy(rng.standard_normal((b, n, 16)).astype(np.float32))
+                .to(cuda_device) for _ in range(2))
+    ids = torch.from_numpy(rng.integers(-1, 40, (b, n))).to(cuda_device)
+    mask = torch.from_numpy(np.arange(n)[None, :] < np.array([70, n])[:, None])
+    mask = mask.to(cuda_device)
+    scfg = SamplerConfig(nfe_step=8, **cache)
+    outs = {}
+    for use_kernels in (True, False):
+        dit = _gated_dit(dims, cuda_device, use_kernels)
+        before = fa.launches
+        with torch.inference_mode():
+            outs[use_kernels] = flow_matching_sample(dit, scfg, cond, ids, mask, [0, 1], x0=x0)
+        torch.cuda.synchronize()
+        assert fa.launches - before == (want if use_kernels else 0)
+    assert torch.isfinite(outs[True]).all()
+    assert (outs[True] - outs[False]).abs().max().item() <= 1e-3
+
+
+def _tiny_cuda_config(cache_dir, **kw):
+    import vietvoice_tts_tpu_torch as vt
+
+    return vt.ModelConfig(
+        device="cuda", dit_dim=64, dit_depth=2, dit_heads=2, text_dim=32,
+        text_conv_layers=1, vocoder_dim=64, vocoder_intermediate_dim=128,
+        vocoder_num_layers=2, nfe_step=4, frame_buckets=(256, 512),
+        max_batch_size=4, compute_dtype="float32", model_cache_dir=str(cache_dir), **kw
+    )
+
+
+def test_cuda_streaming_matches_blocking(cuda_device, tmp_path):
+    """Streaming runs each chunk as a batch of one, blocking as one batch per
+    bucket, and cuBLAS may sum in another order at another batch size. In
+    float32 with TF32 off that moves a sample across an int16 truncation
+    step here and there, and the cross-fade's RMS matching (ratio up to 1.5)
+    scales the step: at most 4 of 32767 (2 measured on an H100)."""
+    import vietvoice_tts_tpu_torch as vt
+
+    text = " ".join(f"Câu số {i} trong đoạn văn dài." for i in range(60))
+    with vt.TTSApi(_tiny_cuda_config(tmp_path)) as api:
+        wave, _ = api.synthesize(text)
+        pieces = list(api.synthesize_streaming(text))
+    assert len(pieces) >= 2 and all(p.dtype == np.int16 for p in pieces)
+    stream = np.concatenate(pieces)
+    assert stream.shape == wave.shape
+    diff = np.abs(stream.astype(np.int32) - wave.astype(np.int32))
+    assert diff.max() <= 4, f"largest sample difference {diff.max()}, mean {diff.mean():.4f}"
+
+
+def test_cuda_deterministic_setup_gives_identical_audio(cuda_device, tmp_path):
+    """A fresh process with setup_deterministic_tts (strict mode: an
+    operation without a deterministic implementation would raise)
+    synthesizes the same audio twice."""
+    code = textwrap.dedent(
+        f"""
+        import numpy as np
+        import vietvoice_tts_tpu_torch as vt
+        vt.setup_deterministic_tts()
+        cfg = vt.ModelConfig(
+            device="cuda", dit_dim=64, dit_depth=2, dit_heads=2, text_dim=32,
+            text_conv_layers=1, vocoder_dim=64, vocoder_intermediate_dim=128,
+            vocoder_num_layers=2, nfe_step=4, frame_buckets=(256, 512),
+            model_cache_dir={str(tmp_path)!r},
+        )
+        api = vt.TTSApi(cfg)
+        a, _ = api.synthesize("Xin chào, hôm nay trời rất đẹp.")
+        b, _ = api.synthesize("Xin chào, hôm nay trời rất đẹp.")
+        assert a.size and np.array_equal(a, b)
+        print("OK", a.size)
+        """
+    )
+    repo = Path(__file__).resolve().parent.parent
+    env = {**os.environ, "VIETVOICE_LOG_LEVEL": "WARNING"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=repo, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("OK")

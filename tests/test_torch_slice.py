@@ -279,14 +279,21 @@ class TestSolve:
                 f.allow_tf32 = v
 
     def test_cached_samplers_rejected(self, cores):
+        """Each sampler cache runs on its own (test_torch_sampler_cache.py);
+        only the two together are rejected."""
         from vietvoice_tts_tpu_torch.models.sampler import flow_matching_sample
 
         tcore = cores[1]
         z = torch.zeros((1, 8, 100))
-        for cfg in (SamplerConfig(uncond_interval=2), SamplerConfig(deep_cache_interval=2)):
-            with pytest.raises(ValueError, match="exact"):
-                flow_matching_sample(tcore.dit, cfg, z, torch.zeros((1, 8), dtype=torch.long),
-                                     torch.ones((1, 8), dtype=torch.bool), [0])
+        args = (z, torch.zeros((1, 8), dtype=torch.long), torch.ones((1, 8), dtype=torch.bool), [0])
+        both = SamplerConfig(nfe_step=4, uncond_interval=2, deep_cache_interval=2,
+                             deep_cache_blocks=1)
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            flow_matching_sample(tcore.dit, both, *args)
+        for cfg in (SamplerConfig(nfe_step=4, uncond_interval=2),
+                    SamplerConfig(nfe_step=4, deep_cache_interval=2, deep_cache_blocks=1)):
+            with torch.no_grad():
+                assert flow_matching_sample(tcore.dit, cfg, *args, x0=z).shape == z.shape
 
 
 # -- Host side -----------------------------------------------------------------

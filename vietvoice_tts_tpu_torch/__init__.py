@@ -14,6 +14,7 @@ from .config import (
     TTSConfig,
 )
 from .client import TTSApi
+from .deterministic import freeze_all_seeds, setup_deterministic_tts
 from .pipeline.engine import TTSEngine
 
 __version__ = "0.1.0"
@@ -23,6 +24,8 @@ __all__ = [
     "TTSConfig",
     "TTSEngine",
     "TTSApi",
+    "freeze_all_seeds",
+    "setup_deterministic_tts",
     "MODEL_GENDER",
     "MODEL_GROUP",
     "MODEL_AREA",

@@ -1,8 +1,9 @@
 """High-level client API (port of ``vietvoice_tts_tpu/client.py``).
 
 Mirrors the reference ``TTSApi``: lazy engine, context manager,
-``synthesize`` / ``synthesize_to_file`` / ``synthesize_to_bytes`` /
-``validate_configuration``; WAV bytes are encoded in memory.
+``synthesize`` / ``synthesize_streaming`` / ``synthesize_to_file`` /
+``synthesize_to_bytes`` / ``validate_configuration``; WAV bytes are encoded
+in memory.
 """
 
 from __future__ import annotations
@@ -62,6 +63,41 @@ class TTSApi:
             reference_audio=reference_audio,
             reference_text=reference_text,
             speed=speed,
+        )
+
+    def synthesize_streaming(
+        self,
+        text: str,
+        gender: Optional[str] = None,
+        group: Optional[str] = None,
+        area: Optional[str] = None,
+        emotion: Optional[str] = None,
+        sample_iteration: Optional[int] = None,
+        reference_audio: Optional[str] = None,
+        reference_text: Optional[str] = None,
+        speed: Optional[float] = None,
+        first_chunk_duration: Optional[float] = None,
+    ):
+        """Stream synthesis: yields int16 waveform pieces as chunks finish.
+
+        The concatenated pieces are ``synthesize()``'s waveform (see
+        ``TTSEngine.synthesize_streaming`` for how exactly); the first piece
+        arrives after one chunk's latency. ``first_chunk_duration`` caps the
+        head chunk for a faster first piece; the chunking then differs from
+        the blocking output's."""
+        if text is None:
+            raise ValueError("Text cannot be None")
+        return self.engine.synthesize_streaming(
+            text=text,
+            gender=gender,
+            group=group,
+            area=area,
+            emotion=emotion,
+            sample_iteration=sample_iteration,
+            reference_audio=reference_audio,
+            reference_text=reference_text,
+            speed=speed,
+            first_chunk_duration=first_chunk_duration,
         )
 
     def synthesize_to_file(

@@ -46,8 +46,10 @@ class ModelConfig:
     # Unroll factor of the JAX solve; eager PyTorch runs one step at a time,
     # so the value changes nothing here (kept for config round-trips).
     fuse_nfe: int = 1
-    # Sampler caches of the JAX package (CFG cache, deep-block cache). Only
-    # the exact path (1) is ported; the sampler raises for other values.
+    # Sampler caches (models/sampler.py), mutually exclusive, 1 = exact: the
+    # CFG cache refreshes the unconditional velocity every k-th eval; the
+    # deep-block cache runs the full DiT depth every r-th eval and only the
+    # first nfe_deep_cache_blocks blocks in between.
     nfe_uncond_interval: int = 1
     nfe_deep_cache_interval: int = 1
     nfe_deep_cache_blocks: int = 7
@@ -71,8 +73,8 @@ class ModelConfig:
     cross_fade_duration: float = 0.1
     max_chunk_duration: float = 20.0
     min_target_duration: float = 1.0
-    # Streaming-only first-chunk cap of the JAX package; streaming is not
-    # ported yet, so blocking synthesis ignores it.
+    # Streaming only: cap (seconds of target audio) on the first chunk of
+    # synthesize_streaming, for a faster first piece. None = no cap.
     streaming_first_chunk_duration: Optional[float] = None
 
     # ---- Mel front-end (Vocos-style, F5-TTS family) ----

@@ -22,48 +22,20 @@
 // the key axis in 64-key tiles with an online softmax (running max and sum,
 // rescaling the accumulator), which computes the same function within
 // rounding. Q (RoPE'd, scaled), K (RoPE'd) and V tiles are staged in shared
-// memory as float32; rows are padded by one float so that the 16 threads
-// reading 16 different key rows hit 16 different banks. Thread (ty, tx)
-// owns query rows ty + 16*i (i < 4) and, for the logits, key columns
-// tx + 16*j (j < 4); for the output, value columns tx + 16*c (c < D/16).
-// A row's 16 owners are one half-warp, so row max and sum are four
-// xor-shuffles. Ragged N is masked in-kernel: keys past N get -inf (no
-// weight at all), query rows past N are computed on zeros and not stored.
+// memory as float32; the tile step itself (logits, softmax update, P.V, and
+// how threads share a tile) is attention_tile.cuh, which flash_attention.cu
+// uses too. Ragged N is masked in-kernel: keys past N get -inf (no weight
+// at all), query rows past N are computed on zeros and not stored.
 // The TPU kernel's head-pair layout for D = 64 was a lane-tiling device of
 // the TPU and is not needed: D is a template parameter (64 or 128).
 //
 // Later work: tensor cores (wgmma), TMA loads and a deeper key pipeline.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_tile.cuh"
 
 namespace {
 
-constexpr int BQ = 64;        // queries per block
-constexpr int BK = 64;        // keys per shared-memory tile
-constexpr int THREADS = 256;  // 16 x 16 threads
-constexpr float PAD_BIAS = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, like torch's cast
-}
-
-template <int D>
-constexpr size_t smem_bytes() {
-  // q [BQ][D+1], k [BK][D+1], v [BK][D], p [BQ][BK+1], key bias [BK]
-  return sizeof(float) *
-         (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1) + BK);
-}
+using namespace vv_attention;
 
 // Row `row` of a head's q or k with RoPE applied, element c: computed in
 // float32 and rounded once to T, as the plain version does (so bf16 q and k
@@ -89,15 +61,10 @@ fused_rope_attention_kernel(const T* __restrict__ qkv,
                             const uint8_t* __restrict__ mask,
                             T* __restrict__ out,
                             int n, int heads, float scale) {
-  constexpr int LD = D + 1;    // padded row pitch of q and k tiles
-  constexpr int LDP = BK + 1;  // padded row pitch of the probability tile
-  constexpr int CPT = D / 16;  // output columns per thread
+  constexpr int LD = Tiles<D>::LD;
+  constexpr int CPT = Tiles<D>::CPT;
   extern __shared__ float smem[];
-  float* q_s = smem;
-  float* k_s = q_s + BQ * LD;
-  float* v_s = k_s + BK * LD;
-  float* p_s = v_s + BK * D;
-  float* bias_s = p_s + BQ * LDP;
+  const Tiles<D> tiles(smem);
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;
@@ -111,6 +78,7 @@ fused_rope_attention_kernel(const T* __restrict__ qkv,
   const int k_col = (heads + h) * D;
   const int v_col = (2 * heads + h) * D;
 
+  // 1/sqrt(D) is folded into q here, so the tile step scales logits by 1.
   for (int idx = tid; idx < BQ * D; idx += THREADS) {
     const int r = idx / D;
     const int c = idx % D;
@@ -120,17 +88,11 @@ fused_rope_attention_kernel(const T* __restrict__ qkv,
       val = rope_elem<T, D>(base + (long)row * row_stride + q_col, cos_t,
                             sin_t, row, c) * scale;
     }
-    q_s[r * LD + c] = val;
+    tiles.q[r * LD + c] = val;
   }
 
-  float m_i[4], l_i[4], acc[4][CPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_i[i] = -INFINITY;
-    l_i[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
-  }
+  RowState<D> st;
+  st.init();
 
   for (int k0 = 0; k0 < n; k0 += BK) {
     __syncthreads();  // the previous tile's readers are done
@@ -144,87 +106,27 @@ fused_rope_attention_kernel(const T* __restrict__ qkv,
         kv = rope_elem<T, D>(row_ptr + k_col, cos_t, sin_t, key, c);
         vv = to_f32(row_ptr[v_col + c]);
       }
-      k_s[r * LD + c] = kv;
-      v_s[r * D + c] = vv;
+      tiles.k[r * LD + c] = kv;
+      tiles.v[r * D + c] = vv;
     }
     if (tid < BK) {
       const int key = k0 + tid;
-      bias_s[tid] = key >= n ? -INFINITY
-                             : (mask[(long)b * n + key] ? 0.f : PAD_BIAS);
+      tiles.bias[tid] = key >= n ? -INFINITY
+                                 : (mask[(long)b * n + key] ? 0.f : PAD_BIAS);
     }
     __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = q_s[(ty + 16 * i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = k_s[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] += bias_s[tx + 16 * j];
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      // Tile 0 always holds key 0 (finite logit), so m_new is finite.
-      const float m_new = fmaxf(m_i[i], mx);
-      const float alpha = expf(m_i[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        p_s[(ty + 16 * i) * LDP + tx + 16 * j] = p;
-        rs += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l_i[i] = l_i[i] * alpha + rs;
-      m_i[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = p_s[(ty + 16 * i) * LDP + kk];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const float vv = v_s[kk * D + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
-      }
-    }
+    tile_step<D>(tiles, 1.0f, tx, ty, st);
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < ROWS; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row < n) {
-      const float inv = 1.f / l_i[i];
+      const float inv = 1.f / st.l[i];
       T* dst = out + ((long)b * n + row) * heads * D + h * D;
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) dst[tx + 16 * c] = from_f32<T>(acc[i][c] * inv);
+      for (int c = 0; c < CPT; ++c)
+        dst[tx + 16 * c] = from_f32<T>(st.acc[i][c] * inv);
     }
   }
 }
@@ -234,7 +136,7 @@ cudaError_t launch(const void* qkv, const void* cos_t, const void* sin_t,
                    const void* mask, void* out, int b, int n, int heads,
                    cudaStream_t stream) {
   auto kernel = fused_rope_attention_kernel<T, D>;
-  constexpr size_t smem = smem_bytes<D>();
+  constexpr size_t smem = Tiles<D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;

@@ -5,11 +5,22 @@ Same network and numerics as the JAX module, written as an ``nn.Module``:
 - AdaLN-Zero conditioning from the flow time; the per-block modulations
   depend only on t, so the sampler computes them for the whole time grid
   once (:meth:`DiT.time_modulations`) and passes them in.
-- Packed QKV ``[q_heads ‖ k_heads ‖ v_heads]`` along the feature dim. With
-  ``use_kernels`` it goes to the fused attention wrapper
-  (``ops/kernels/fused_rope_attention.py``), which launches the CUDA kernel
-  on CUDA tensors or raises; without it, and for CPU tensors, the split /
-  ``apply_rope`` / reference-attention path runs.
+- Packed QKV ``[q_heads ‖ k_heads ‖ v_heads]`` along the feature dim, and
+  two attention routes, picked once per forward from (heads, head_dim):
+  where the fused RoPE-attention kernel's ``supports_shape`` holds (head_dim
+  64 or 128) the packed projection goes to its wrapper
+  (``ops/kernels/fused_rope_attention.py``); any other head shape takes the
+  split-heads route of ``vietvoice_tts_tpu/models/dit.py:415-423``: split
+  into ``[B, H, N, D]``, ``apply_rope`` on q and k in plain ops, then
+  ``ops/attention.py:attention``, whose kernel is ``flash_attention``
+  (head_dim 32, 64, 96, 128 or 256). head_dim 256 therefore goes to
+  ``flash_attention`` here, while the JAX package's fused kernel takes it.
+  With ``use_kernels`` each wrapper launches its CUDA kernel on CUDA
+  tensors or raises (a head_dim neither kernel takes is never served by a
+  plain version on the card); without it, and for CPU tensors, the plain
+  versions run.
+- The sampler's deep-block cache (``shallow_blocks`` / ``deep_state`` /
+  ``return_deep_state`` of :meth:`DiT.forward_embedded`).
 - The residual stream and matmuls are in ``compute_dtype``; LayerNorm
   statistics, modulation math, the time embedding, the text embedding's
   residual stream and the final projection are float32.
@@ -31,11 +42,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.attention import attention
 from ..ops.kernels.fused_rope_attention import (
     fused_qkv_rope_attention,
     fused_qkv_rope_attention_reference,
+    supports_shape as fused_supports_shape,
 )
-from ..ops.rope import rope_tables
+from ..ops.rope import apply_rope, rope_tables
 
 TIME_FREQ_DIM = 256  # sinusoidal feature width for the flow time
 CONV_POS_KERNEL = 31
@@ -278,6 +291,31 @@ class DiT(nn.Module):
 
     # -- Forward -----------------------------------------------------------
 
+    def _attend(self, n: int):
+        """The attention route for this forward: packed qkv [B, N, 3·H·D],
+        rope tables, mask → [B, N, H·D]. Picked from the head shape alone;
+        the wrappers decide between kernel and plain version by device."""
+        cfg = self.cfg
+        heads, hd = cfg.heads, cfg.head_dim
+        if fused_supports_shape(heads, hd, n):
+            fused = (
+                fused_qkv_rope_attention if cfg.use_kernels
+                else fused_qkv_rope_attention_reference
+            )
+            return lambda qkv, cos, sin, mask: fused(qkv, cos, sin, mask, heads)
+
+        def split_heads(qkv, cos, sin, mask):
+            b = qkv.shape[0]
+            # Views into the packed projection: v reaches the kernel uncopied.
+            q, k, v = (
+                t.reshape(b, n, heads, hd).transpose(1, 2) for t in qkv.chunk(3, dim=-1)
+            )
+            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+            out = attention(q, k, v, mask, use_kernels=cfg.use_kernels)
+            return out.transpose(1, 2).reshape(b, n, heads * hd)
+
+        return split_heads
+
     def forward_embedded(
         self,
         x: torch.Tensor,  # [B, N, n_mels] noisy latent
@@ -286,10 +324,20 @@ class DiT(nn.Module):
         t: torch.Tensor,  # [B] flow time in [0, 1]
         mask: torch.Tensor,  # [B, N] bool, True = valid frame
         time_mod=None,  # optional (mods [depth, B', 6d], fmod [B', 2d])
-    ) -> torch.Tensor:
+        shallow_blocks: int | None = None,
+        deep_state: torch.Tensor | None = None,
+        return_deep_state: bool = False,
+    ):
         """Predict the flow velocity field [B, N, n_mels] float32; masked
         frames return exactly 0. ``time_mod`` carries modulations hoisted by
-        the sampler (B' = 1 broadcasts); when None they come from ``t``."""
+        the sampler (B' = 1 broadcasts); when None they come from ``t``.
+
+        Deep-block caching (opt-in via the sampler): with ``shallow_blocks=j``,
+        ``return_deep_state=True`` runs all blocks and also returns the deep
+        trunk's residual contribution ``h_L − h_j`` as ``(out, state)``;
+        ``deep_state=state`` runs only blocks ``0..j`` on the fresh input and
+        adds the cached contribution (``h ≈ h_j + state``), skipping
+        ``depth − j`` blocks."""
         cfg = self.cfg
         dtype = cfg.compute_dtype
         b, n, _ = x.shape
@@ -312,13 +360,7 @@ class DiT(nn.Module):
             mods, fmod = time_mod
 
         cos, sin = self._rope(n, x.device)
-        heads = cfg.heads
-        # The wrapper launches the kernel on CUDA tensors (or raises on a
-        # shape it does not take) and runs the plain version on CPU tensors.
-        attend = (
-            fused_qkv_rope_attention if cfg.use_kernels
-            else fused_qkv_rope_attention_reference
-        )
+        attend = self._attend(n)
 
         def modulated_norm(h, sc, sh):
             # sc/sh: [B', dim] f32; B' = 1 broadcasts over the batch.
@@ -326,20 +368,45 @@ class DiT(nn.Module):
                 layernorm(h, cfg.norm_dtype) * (1.0 + sc[:, None]) + sh[:, None]
             ).to(dtype)
 
-        for blk, mod in zip(self.blocks, mods):
-            sh_a, sc_a, g_a, sh_f, sc_f, g_f = mod.chunk(6, dim=-1)
-            u = modulated_norm(h, sc_a, sh_a)
-            qkv = linear(u, blk.qkv)
-            attn = attend(qkv, cos, sin, mask, heads)
-            attn = linear(attn, blk.attn_out)
-            h = h + g_a[:, None].to(dtype) * attn
+        def run_blocks(h, start, stop):
+            for i in range(start, stop):
+                blk = self.blocks[i]
+                sh_a, sc_a, g_a, sh_f, sc_f, g_f = mods[i].chunk(6, dim=-1)
+                u = modulated_norm(h, sc_a, sh_a)
+                qkv = linear(u, blk.qkv)
+                attn = attend(qkv, cos, sin, mask)
+                attn = linear(attn, blk.attn_out)
+                h = h + g_a[:, None].to(dtype) * attn
 
-            u = modulated_norm(h, sc_f, sh_f)
-            f = F.gelu(linear(u, blk.ff1), approximate="tanh")
-            f = linear(f, blk.ff2)
-            h = h + g_f[:, None].to(dtype) * f
+                u = modulated_norm(h, sc_f, sh_f)
+                f = F.gelu(linear(u, blk.ff1), approximate="tanh")
+                f = linear(f, blk.ff2)
+                h = h + g_f[:, None].to(dtype) * f
+            return h
+
+        deep_out = None
+        if shallow_blocks is None:
+            h = run_blocks(h, 0, cfg.depth)
+        else:
+            # The blocks are a ModuleList, so the split is a slice of it; the
+            # JAX function's ``presplit_blocks`` (weights pre-sliced outside
+            # a scan, so XLA does not re-slice them every step) has no
+            # counterpart here.
+            j = int(shallow_blocks)
+            if not 1 <= j < cfg.depth:
+                raise ValueError(f"shallow_blocks={j} must be in [1, depth={cfg.depth})")
+            h = run_blocks(h, 0, j)
+            if deep_state is not None:
+                h = h + deep_state.to(h.dtype)
+            else:
+                h_deep = run_blocks(h, j, cfg.depth)
+                deep_out = h_deep - h
+                h = h_deep
 
         sh, sc = fmod.chunk(2, dim=-1)
         h = layernorm(h) * (1.0 + sc[:, None]) + sh[:, None]
         out = F.linear(h, self.final_proj.weight.float(), self.final_proj.bias.float())
-        return torch.where(mask[..., None], out, torch.zeros((), device=out.device))
+        out = torch.where(mask[..., None], out, torch.zeros((), device=out.device))
+        if return_deep_state:
+            return out, deep_out
+        return out

@@ -1,10 +1,17 @@
-"""Flow-matching ODE sampler, exact path (port of ``vietvoice_tts_tpu/models/sampler.py:95-155``).
+"""Flow-matching ODE sampler (port of ``vietvoice_tts_tpu/models/sampler.py``).
 
 - Sway-warped time grid (F5 recipe): t ← t + s·(cos(πt/2) − 1 + t).
 - CFG as a doubled batch: cond and uncond rows (zero conditioning, text ids
   −1) run as one [2B] forward per step.
 - Text embedding and the AdaLN modulations of every step are computed once,
   before the step loop.
+- Two opt-in caches, mutually exclusive (``SamplerConfig``): the CFG cache
+  refreshes the unconditional velocity every k-th eval and runs the evals
+  in between cond-only at batch B; the deep-block cache runs the full depth
+  every r-th eval and only the first j blocks in between. The JAX sampler
+  pads the eval count to whole segments with dt = 0 identity steps because
+  ``lax.scan`` needs equal segments; this eager loop just stops at the last
+  real eval, which gives the same x.
 - Per-row seeded noise: row i's initial noise comes from its own
   ``torch.Generator`` seeded from ``(random_seed, row_seeds[i])``, so a
   row's output does not depend on what it is batched with. The values differ
@@ -14,6 +21,7 @@
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -27,9 +35,16 @@ class SamplerConfig:
     nfe_step: int = 32
     cfg_strength: float = 2.0
     sway_sampling_coef: float = -1.0
-    # The JAX package's sampler caches; only the exact path (1, 1) is ported.
+    # CFG cache: refresh the unconditional velocity only every k-th eval;
+    # between refreshes the cond-only forward runs at batch B instead of the
+    # CFG-doubled 2B and reuses the cached uncond velocity. 1 = exact.
     uncond_interval: int = 1
+    # Deep-block cache: every r-th eval runs all DiT blocks and records the
+    # deep trunk's residual contribution (h_L − h_j); the r−1 evals in
+    # between run only the first ``deep_cache_blocks`` blocks and reuse it.
+    # 1 = exact. Mutually exclusive with uncond_interval > 1.
     deep_cache_interval: int = 1
+    deep_cache_blocks: int = 7
 
 
 def sway_time_grid(cfg: SamplerConfig) -> torch.Tensor:
@@ -40,6 +55,18 @@ def sway_time_grid(cfg: SamplerConfig) -> torch.Tensor:
     if s:
         t = t + s * (torch.cos(math.pi / 2.0 * t) - 1.0 + t)
     return t
+
+
+@functools.lru_cache(maxsize=16)
+def _time_grid_on(cfg: SamplerConfig, device: torch.device):
+    """(step sizes as Python floats, step start times on ``device``).
+
+    Cached: a host-to-device copy from pageable memory first waits for the
+    device to drain its stream, so a copy per solve (let alone per step)
+    would keep the host from queueing a solve behind a running one."""
+    t_grid = sway_time_grid(cfg)
+    with torch.inference_mode(False):
+        return torch.diff(t_grid).tolist(), t_grid[:-1].to(device)
 
 
 def row_noise(
@@ -70,10 +97,12 @@ def flow_matching_sample(
     """Integrate the learned velocity field from noise to the mel latent.
 
     Returns [B, N, n_mels] float32."""
-    if cfg.uncond_interval != 1 or cfg.deep_cache_interval != 1:
+    k = max(1, cfg.uncond_interval)
+    r = max(1, cfg.deep_cache_interval)
+    if k > 1 and r > 1:
         raise ValueError(
-            "only the exact sampler (uncond_interval = deep_cache_interval = 1) "
-            "is ported"
+            "uncond_interval and deep_cache_interval are mutually exclusive: "
+            "enable at most one cache"
         )
     b, n, m = cond.shape
     if x0 is not None:
@@ -86,21 +115,30 @@ def flow_matching_sample(
     text2 = torch.cat([text_ids, torch.full_like(text_ids, -1)], dim=0)
     text_emb2 = dit.text_embed(text2)
 
-    t_grid = sway_time_grid(cfg)
-    dts = torch.diff(t_grid).tolist()
-    # Copied to the device once: a blocking host-to-device copy inside the
-    # loop would wait for the previous step to finish on the device, and the
-    # host could not queue the next step's kernels ahead of it.
-    t_starts = t_grid[:-1].to(cond.device)
+    dts, t_starts = _time_grid_on(cfg, cond.device)
     mods_all, fmod_all = dit.time_modulations(t_starts)
 
+    deep_kw = {"shallow_blocks": cfg.deep_cache_blocks} if r > 1 else {}
+    v_uncond = deep = None
     for i, dt in enumerate(dts):
-        x2 = torch.cat([x, x], dim=0)
-        tb = t_starts[i].expand(2 * b)
-        v2 = dit.forward_embedded(
-            x2, cond2, text_emb2, tb, mask2,
-            time_mod=(mods_all[i][:, None], fmod_all[i][None]),
-        )
-        v_cond, v_uncond = v2[:b], v2[b:]
+        time_mod = (mods_all[i][:, None], fmod_all[i][None])
+        if i % k:
+            # CFG cache: cond-only at batch B against the cached v_uncond.
+            v_cond = dit.forward_embedded(
+                x, cond, text_emb2[:b], t_starts[i].expand(b), mask, time_mod=time_mod
+            )
+        else:
+            args = (torch.cat([x, x], dim=0), cond2, text_emb2,
+                    t_starts[i].expand(2 * b), mask2)
+            if i % r:
+                # Deep cache: the shallow blocks plus the segment's record.
+                v2 = dit.forward_embedded(*args, time_mod=time_mod, deep_state=deep, **deep_kw)
+            elif r > 1:
+                v2, deep = dit.forward_embedded(
+                    *args, time_mod=time_mod, return_deep_state=True, **deep_kw
+                )
+            else:
+                v2 = dit.forward_embedded(*args, time_mod=time_mod)
+            v_cond, v_uncond = v2[:b], v2[b:]
         x = x + dt * (v_cond + cfg.cfg_strength * (v_cond - v_uncond))
     return x

@@ -112,6 +112,28 @@ def _ola_envelope(n: int, n_fft: int, hop: int) -> np.ndarray:
     return np.maximum(env, 1e-8).astype(np.float32)
 
 
+def _on_device(arrays, device: torch.device):
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(a).to(device) for a in arrays)
+
+
+# The iSTFT's constants on the device, cached: copied from pageable host
+# memory on every call, each copy would first wait for the device to drain
+# its stream, and a batch could not be queued behind one that is still
+# running.
+
+
+@lru_cache(maxsize=8)
+def _idft_constants(n_fft: int, device: torch.device):
+    """(cos basis, sin basis, synthesis window) on ``device``."""
+    return _on_device((*_idft_basis(n_fft), _hann_periodic(n_fft)), device)
+
+
+@lru_cache(maxsize=32)
+def _ola_envelope_on(n: int, n_fft: int, hop: int, device: torch.device):
+    return _on_device((_ola_envelope(n, n_fft, hop),), device)[0]
+
+
 def istft_overlap_add(
     real: torch.Tensor,  # [B, N, n_freqs]
     imag: torch.Tensor,  # [B, N, n_freqs]
@@ -127,8 +149,7 @@ def istft_overlap_add(
         raise ValueError(f"n_fft {n_fft} must be a multiple of hop {hop}")
     b, n, _ = real.shape
     dev = real.device
-    cos_b, sin_b = (torch.from_numpy(a).to(dev) for a in _idft_basis(n_fft))
-    win = torch.from_numpy(_hann_periodic(n_fft)).to(dev)
+    cos_b, sin_b, win = _idft_constants(n_fft, dev)
     frames = (real @ cos_b + imag @ sin_b) * win  # [B, N, n_fft]
 
     r = n_fft // hop
@@ -138,7 +159,7 @@ def istft_overlap_add(
         # add at offset j·hop, in the JAX package's order.
         seg = frames[:, :, j * hop : (j + 1) * hop].reshape(b, n * hop)
         buf[:, j * hop : j * hop + n * hop] += seg
-    buf = buf / torch.from_numpy(_ola_envelope(n, n_fft, hop)).to(dev)
+    buf = buf / _ola_envelope_on(n, n_fft, hop, dev)
     pad = n_fft // 2
     return buf[:, pad : pad + n * hop]
 

@@ -1,9 +1,13 @@
-"""Reference self-attention (port of ``vietvoice_tts_tpu/ops/attention.py``).
+"""Self-attention for the DiT (port of ``vietvoice_tts_tpu/ops/attention.py``).
 
-The plain version that the fused CUDA kernel is held against: float32
-logits from the (possibly bf16) q and k, scale on the logits, an additive
--1e30 key-padding bias, float32 softmax, and a float32 weighted sum of the
-values, cast to q's dtype at the end.
+:func:`attention` is the plain version that both CUDA attention kernels are
+held against: float32 logits from the (possibly bf16) q and k, scale on the
+logits, an additive -1e30 key-padding bias, float32 softmax, and a float32
+weighted sum of the values, cast to q's dtype at the end. With
+``use_kernels=True`` (the JAX function's ``use_pallas``) it hands the call to
+the CUDA kernel's wrapper, ``ops/kernels/flash_attention.py``, which launches
+the kernel on CUDA tensors or raises, and runs this plain body on CPU
+tensors. There is no quiet fallback from a kernel that fails.
 
 Two roundings differ from the JAX function in bfloat16 (in float32 the two
 are the same function). JAX casts the softmax weights to q's dtype before
@@ -31,12 +35,19 @@ def attention(
     k: torch.Tensor,
     v: torch.Tensor,
     mask: torch.Tensor | None = None,
+    use_kernels: bool = False,
 ) -> torch.Tensor:
     """Bidirectional multi-head attention.
 
     q, k, v: [B, H, N, D]; mask: [B, N] bool (True = valid frame) or None.
     Returns [B, H, N, D] in q's dtype.
     """
+    if use_kernels:
+        # Imported here: the wrapper's module imports this one for its
+        # plain version.
+        from .kernels.flash_attention import flash_attention
+
+        return flash_attention(q, k, v, mask)
     scale = q.shape[-1] ** -0.5
     # bf16 → f32 is exact, so these products match an f32-accumulating
     # bf16 matmul (JAX's preferred_element_type=float32).

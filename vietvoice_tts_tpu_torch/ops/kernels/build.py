@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C entry point and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``build/vietvoice_tts_tpu_torch/`` at
 the root of the checkout (beside the package directory), then loaded with
-``ctypes``. The library's file name carries a hash of its source and flags,
-so an edited source is rebuilt and a built one is reused. Nothing is built
+``ctypes``. The library's file name carries a hash of its source, the
+headers beside it (``csrc/*.cuh``) and the flags, so an edited source is
+rebuilt and a built one is reused. Different libraries may build at the same
+time (one lock per name). Nothing is built
 when a module is imported: the CPU tests import every module on machines
 without ``nvcc``.
 """
@@ -33,7 +35,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards the two dicts below
+_build_locks: dict[str, threading.Lock] = {}
 _libraries: dict[str, ctypes.CDLL] = {}
 
 
@@ -53,14 +56,19 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
 def load_library(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if needed and return the loaded library."""
     with _lock:
+        build_lock = _build_locks.setdefault(name, threading.Lock())
+    with build_lock:
         lib = _libraries.get(name)
         if lib is not None:
             return lib

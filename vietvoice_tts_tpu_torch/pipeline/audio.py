@@ -1,11 +1,13 @@
 """Audio I/O and host-side DSP.
 
 A copy of ``vietvoice_tts_tpu/pipeline/audio.py`` with its numpy cross-fade
-only (the optional C++ host DSP library and the streaming cross-fade are not
-ported yet). Behavioral parity with the reference's ``AudioProcessor``
+only (the optional C++ host DSP library is not ported yet). Behavioral
+parity with the reference's ``AudioProcessor``
 (``vietvoicetts/core/audio_processor.py:12-193``): load/mono/resample →
 int16 normalize, clipped-audio repair, WAV save, and the equal-power
-cross-fade concatenator with RMS matching.
+cross-fade with RMS matching, all at once
+(``concatenate_with_crossfade_improved``) or chunk by chunk as a stream
+(``stream_with_crossfade``).
 """
 
 from __future__ import annotations
@@ -23,6 +25,28 @@ log = get_logger("audio")
 INT16_MAX = 32767.0
 PEAK_TARGET = 29491.0  # 90% of int16 range (reference audio_processor.py:39)
 CLIP_RESCALE = 26214.0  # 80% of int16 range (reference audio_processor.py:56)
+
+
+def _crossfade_pair(prev: np.ndarray, nxt: np.ndarray, n_fade: int) -> np.ndarray:
+    """Join two int16 waves with an equal-power cross-fade over at most
+    ``n_fade`` samples, after matching ``nxt``'s RMS to ``prev``'s in the
+    overlap (ratio clamped to [0.7, 1.5])."""
+    n = min(n_fade, len(prev), len(nxt))
+    if n <= 0:
+        return np.concatenate([prev, nxt])
+    prev_overlap = prev[-n:].astype(np.float32)
+    next_overlap = nxt[:n].astype(np.float32)
+    prev_rms = np.sqrt(np.mean(prev_overlap**2))
+    next_rms = np.sqrt(np.mean(next_overlap**2))
+    if prev_rms > 100 and next_rms > 100:
+        ratio = float(np.clip(prev_rms / next_rms, 0.7, 1.5))
+        nxt = (nxt.astype(np.float32) * ratio).astype(np.int16)
+        next_overlap = nxt[:n].astype(np.float32)
+    theta = np.linspace(0.0, np.pi / 2, n)
+    overlap = (
+        prev_overlap * np.cos(theta) ** 2 + next_overlap * np.sin(theta) ** 2
+    ).astype(np.int16)
+    return np.concatenate([prev[:-n], overlap, nxt[n:]])
 
 
 class AudioProcessor:
@@ -89,21 +113,29 @@ class AudioProcessor:
 
         final = waves[0]
         for nxt in waves[1:]:
-            n = min(int(cross_fade_duration * sample_rate), len(final), len(nxt))
-            if n <= 0:
-                final = np.concatenate([final, nxt])
-                continue
-            prev_overlap = final[-n:].astype(np.float32)
-            next_overlap = nxt[:n].astype(np.float32)
-            prev_rms = np.sqrt(np.mean(prev_overlap**2))
-            next_rms = np.sqrt(np.mean(next_overlap**2))
-            if prev_rms > 100 and next_rms > 100:
-                ratio = float(np.clip(prev_rms / next_rms, 0.7, 1.5))
-                nxt = (nxt.astype(np.float32) * ratio).astype(np.int16)
-                next_overlap = nxt[:n].astype(np.float32)
-            theta = np.linspace(0.0, np.pi / 2, n)
-            fade_out = np.cos(theta) ** 2
-            fade_in = np.sin(theta) ** 2
-            overlap = (prev_overlap * fade_out + next_overlap * fade_in).astype(np.int16)
-            final = np.concatenate([final[:-n], overlap, nxt[n:]])
+            final = _crossfade_pair(final, nxt, int(cross_fade_duration * sample_rate))
         return final
+
+    @staticmethod
+    def stream_with_crossfade(chunks, cross_fade_duration: float, sample_rate: int):
+        """Incremental equal-power cross-fade: the same math as
+        ``concatenate_with_crossfade_improved`` (and bit-identical output for
+        chunks longer than twice the fade window, i.e. any real chunk:
+        ``min_target_duration`` is 1 s against a 0.1 s fade), but yields
+        audio as each chunk arrives. Each emitted piece is final: only the
+        fade window is held back, and it is exactly what the next pairwise
+        join needs.
+
+        ``chunks`` is any iterable of int16 arrays (typically a generator
+        pulling completed device batches). Yields int16 arrays."""
+        n_fade = int(cross_fade_duration * sample_rate)
+        tail: np.ndarray | None = None
+        for raw in chunks:
+            w = AudioProcessor.fix_clipped_audio(np.asarray(raw).reshape(-1))
+            merged = w if tail is None else _crossfade_pair(tail, w, n_fade)
+            hold = min(n_fade, len(merged))
+            if len(merged) > hold:
+                yield merged[: len(merged) - hold]
+            tail = merged[len(merged) - hold :]
+        if tail is not None and len(tail):
+            yield tail

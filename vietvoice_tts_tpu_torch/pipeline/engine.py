@@ -5,8 +5,9 @@ constructor/context-manager/cleanup, ``synthesize(...)`` returning
 ``(int16 waveform, generation_time)``, and the same duration estimation and
 chunking policy (speaking rate from the reference clip, 20 s chunk cap, 1 s
 safety margin, recursive re-split). Chunks are padded into frame buckets and
-run as batches through :class:`EngineCore` (direct mode; the micro-batcher,
-streaming and meshes are not ported yet).
+run through :class:`EngineCore` in direct mode: as batches for
+``synthesize``, as single rows, one after the other, for
+``synthesize_streaming`` (the micro-batcher and meshes are not ported yet).
 """
 
 from __future__ import annotations
@@ -108,6 +109,7 @@ class TTSEngine:
         reference_text: str,
         target_text: str,
         speed: Optional[float] = None,
+        first_chunk_cap: Optional[float] = None,
     ) -> List[ChunkPlan]:
         cfg = self.config
         tp = self.text_processor
@@ -166,6 +168,33 @@ class TTSEngine:
                 len(chunks),
                 available,
             )
+
+        if first_chunk_cap and chunks:
+            # Streaming policy: time to first audio is one chunk's latency,
+            # so cap the first chunk's target duration and plan the rest
+            # with the normal budget. Same chunking rules, a smaller budget
+            # for the head; it engages only when it meaningfully helps.
+            head_len = tp.calculate_text_length(chunks[0], cfg.pause_punctuation)
+            head_dur = max(head_len / speaking_rate / speed, cfg.min_target_duration)
+            if head_dur > first_chunk_cap * 1.25:
+                head_chars = max(8, int(speaking_rate * first_chunk_cap * speed))
+                head_split = tp.chunk_text(chunks[0], max_chars=head_chars)
+                if len(head_split) > 1:
+                    rest_avail = max(
+                        cfg.max_chunk_duration - ref_audio_duration - 1.0,
+                        first_chunk_cap,
+                    )
+                    rest_chars = int(speaking_rate * rest_avail * speed)
+                    rest_text = " ".join(head_split[1:])
+                    rest = tp.chunk_text(rest_text, max_chars=rest_chars)
+                    chunks = [head_split[0], *rest, *chunks[1:]]
+                    log.info(
+                        "Streaming first-chunk cap %.1fs: head %d chars, "
+                        "%d chunks total",
+                        first_chunk_cap,
+                        len(head_split[0]),
+                        len(chunks),
+                    )
 
         plans: List[ChunkPlan] = []
         for i, chunk in enumerate(chunks):
@@ -268,6 +297,78 @@ class TTSEngine:
                     results[p.index] = self._slice_output(p, out[row])
 
         return [results[i] for i in sorted(results)]
+
+    def _iter_chunk_waves(self, plans: List[ChunkPlan], ref_audio_f32: np.ndarray):
+        """Yield each chunk's trimmed int16 wave in order, as it completes.
+
+        Single-row dispatches, one at a time: chunk k is handed to the
+        caller before chunk k+1 is dispatched. The JAX engine keeps two in
+        flight, where a dispatch is one asynchronous call. Here it is some
+        17,000 kernel launches and CUDA's launch queue holds about a
+        thousand, so the host could not queue chunk k+1 behind a running
+        chunk k anyway: it would sit in the queue until chunk k+1 was nearly
+        done, and chunk k would reach the caller a whole chunk late (measured
+        on an H100, ``PERF.md``). The device waits only the milliseconds
+        between a fetch and the next dispatch's first kernels."""
+        for p in plans:
+            wave, ids = self._chunk_row(p, ref_audio_f32)
+            fetch = self.engine_core.synthesize_batch_async(
+                wave[None],
+                np.asarray([p.ref_len], np.int32),
+                ids[None],
+                np.asarray([p.total_len], np.int32),
+                seed=np.asarray([p.index], np.uint32),
+            )
+            yield self._slice_output(p, fetch()[0])
+
+    def synthesize_streaming(
+        self,
+        text: str,
+        gender: Optional[str] = None,
+        group: Optional[str] = None,
+        area: Optional[str] = None,
+        emotion: Optional[str] = None,
+        sample_iteration: Optional[int] = None,
+        reference_audio: Optional[str] = None,
+        reference_text: Optional[str] = None,
+        speed: Optional[float] = None,
+        first_chunk_duration: Optional[float] = None,
+    ):
+        """Stream synthesis: yields int16 waveform pieces as chunks complete.
+
+        Same planning, per-chunk seeds and RMS-matched equal-power
+        cross-fade (applied incrementally) as ``synthesize()``, but the first
+        piece arrives after one chunk's latency instead of the whole
+        utterance's. Each chunk runs as a batch of one where ``synthesize()``
+        batches a bucket's chunks together; per-row noise makes the inputs
+        equal, and the concatenated pieces equal ``synthesize()``'s output
+        as far as the matmul library picks the same algorithm at both batch
+        sizes (byte for byte in float32 on the CPU, see
+        ``tests/test_torch_streaming.py``; ``chip_smoke.py`` states the
+        tolerance on the card).
+
+        ``first_chunk_duration`` (or ``config.streaming_first_chunk_duration``)
+        also caps the first chunk's target audio length so playback starts
+        sooner on long texts, at the cost of one more cross-fade boundary;
+        the chunking then differs from the blocking output's."""
+        ref_audio, ref_text = self.model_session_manager.select_sample(
+            gender, group, area, emotion, sample_iteration, reference_audio, reference_text
+        )
+        ref_int16 = self._load_ref(ref_audio)
+        ref_f32 = ref_int16.astype(np.float32) / 32768.0
+        cap = (
+            first_chunk_duration
+            if first_chunk_duration is not None
+            else self.config.streaming_first_chunk_duration
+        )
+        plans = self._plan_chunks(
+            ref_f32, ref_text, text, speed=speed, first_chunk_cap=cap
+        )
+        yield from self.audio_processor.stream_with_crossfade(
+            self._iter_chunk_waves(plans, ref_f32),
+            self.config.cross_fade_duration,
+            self.config.sample_rate,
+        )
 
     # -- Public API (parity with the reference :189-257) ---------------------
 
