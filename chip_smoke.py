@@ -11,11 +11,15 @@ unavailable or the package is not beside it. Phases, in order (any failed
 check raises):
 
 1. The card's name and power limit, as ``nvidia-smi`` reports them.
-2. Build every CUDA kernel of the package from ``csrc/``, all at once.
+2. Build every CUDA kernel of the package from ``csrc/``, all at once; then
+   count the ``HGMMA`` instructions (the machine code of ``wgmma``) in each
+   library's SASS, which must not be zero: the bfloat16 paths are on the
+   tensor cores.
 3. Each kernel against its plain PyTorch version on the card, at the shapes
    the serving path gives it, in float32 (max-abs ≤ 1e-4: both sides are
    true f32 with TF32 off) and bfloat16 (max-abs ≤ 1e-2, about one bf16 ulp
-   of an output below 2), with kernel and plain times; for
+   of an output below 2), with the variant that ran (``wgmma`` or ``simt``)
+   and kernel and plain times; for
    ``flash_attention`` also with v as a strided view of a packed projection
    (the DiT's layout) and beside ``scaled_dot_product_attention``, a
    yardstick that the package never calls.
@@ -48,6 +52,7 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -61,13 +66,15 @@ WORK = ROOT / "build" / "chip_smoke"
 
 # Phase-3 shapes (B, N, H, D): B = 2 × batch for CFG; N from the frame
 # buckets; 8×128 is the default model, 16×64 a converted F5 model; 448 is
-# the batch-1 latency shape, 437 an N that is not a multiple of 8.
+# the batch-1 latency shape, 437 an N that is not a multiple of 8, and
+# B = 6 at 2048 the long text's three chunks as one blocking batch.
 KERNEL_SHAPES = [
     (2, 512, 8, 128),
     (2, 512, 16, 64),
     (2, 448, 8, 128),
     (16, 1024, 8, 128),
     (2, 2048, 8, 128),
+    (6, 2048, 8, 128),
     (2, 437, 8, 128),
 ]
 LATENCY_SHAPE = (2, 448, 8, 128)
@@ -128,35 +135,58 @@ def nvidia_smi_line() -> str:
 
 
 def cuda_ms(fn, samples: int = 10, calls: int = 10) -> float:
-    """Device time of one ``fn()`` in ms: the median over ``samples`` CUDA-event
-    timings of ``calls`` back-to-back calls each (after a warm-up), so host
-    launch gaps between calls are amortized."""
+    """Device time of one ``fn()`` in ms: ``calls`` back-to-back calls are
+    captured into a CUDA graph (after a warm-up) and the median over
+    ``samples`` CUDA-event timings of its replay is divided by ``calls``. A
+    replay has no host work between the kernels, so a kernel of a few tens of
+    microseconds is timed by the device and not by how fast Python enqueues
+    it. The inputs stay in the L2 cache between calls, as they do in the DiT,
+    where the projection that wrote them ran just before."""
     import torch
 
     fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
     torch.cuda.synchronize()
     times = []
     for _ in range(samples):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(calls):
-            fn()
+        graph.replay()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
+    del graph
     return statistics.median(times)
 
 
 def phase_build() -> None:
-    """Build every kernel, one ``nvcc`` per source, all started together."""
-    from vietvoice_tts_tpu_torch.ops.kernels.build import load_library
+    """Build every kernel, one ``nvcc`` per source, all started together;
+    then show that each library's bfloat16 path is on the tensor cores."""
+    from vietvoice_tts_tpu_torch.ops.kernels.build import (
+        build_report, count_sass, load_library)
 
     names = ("fused_rope_attention", "flash_attention")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(load_library, names))
     log(f"[2] built {', '.join(names)} in {time.perf_counter() - t0:.2f} s")
+    for name in names:
+        hgmma = count_sass(name, "HGMMA")
+        report = build_report(name)
+        spills = sum(
+            int(m) for m in re.findall(r"(\d+) bytes spill (?:stores|loads)", report))
+        registers = [int(m) for m in re.findall(r"Used (\d+) registers", report)]
+        log(f"[2] {name}: {hgmma} HGMMA instructions in the SASS; ptxas: "
+            f"{len(registers)} kernels, at most {max(registers, default=0)} registers, "
+            f"{spills} bytes of spills")
+        if hgmma == 0:
+            raise AssertionError(f"{name}: no HGMMA in the SASS, wgmma path missing")
 
 
 def bound(tensors, flops: float, dtype_name: str) -> tuple[float, str]:
@@ -219,7 +249,8 @@ def phase_kernels(card: str) -> dict:
             bound_ms, bound_by = bound((qkv, cos, sin, mask, out), flops, dtype_name)
             measured[(b, n, heads, d, dtype_name)] = (ms, plain_ms, bound_ms, bound_by)
             log(
-                f"[3] fused_rope B={b} N={n} H={heads} D={d} {dtype_name}: max-abs "
+                f"[3] fused_rope B={b} N={n} H={heads} D={d} {dtype_name} "
+                f"{fra.kernel_variant(dtype, d)}: max-abs "
                 f"{err:.3e} (tol {tol:.0e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"bound {bound_ms:.5f} ms ({bound_by}) [{card}]"
             )
@@ -296,8 +327,8 @@ def phase_flash_kernel(card: str) -> dict:
                 measured[(b, heads, n, d, dtype_name, layout)] = (
                     ms, plain_ms, library_ms, bound_ms, bound_by)
                 log(
-                    f"[3] flash B={b} H={heads} N={n} D={d} {dtype_name} {layout}: "
-                    f"max-abs {err:.3e} (tol {tol:.0e}); kernel {ms:.4f} ms, plain "
+                    f"[3] flash B={b} H={heads} N={n} D={d} {dtype_name} {layout} "
+                    f"{fa.kernel_variant(dtype, d)}: max-abs {err:.3e} (tol {tol:.0e}); kernel {ms:.4f} ms, plain "
                     f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
                     f"({bound_by}) [{card}]"
                 )

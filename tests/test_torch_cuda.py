@@ -10,6 +10,7 @@ Tolerances: float32 max-abs 1e-4 (both sides true float32, TF32 off),
 bfloat16 max-abs 1e-2 (about one bf16 ulp of an output below 2).
 """
 
+import ctypes
 import os
 import subprocess
 import sys
@@ -26,6 +27,7 @@ from vietvoice_tts_tpu_torch.models.sampler import SamplerConfig, flow_matching_
 from vietvoice_tts_tpu_torch.ops.attention import attention
 from vietvoice_tts_tpu_torch.ops.kernels import flash_attention as fa
 from vietvoice_tts_tpu_torch.ops.kernels import fused_rope_attention as fra
+from vietvoice_tts_tpu_torch.ops.kernels.build import count_sass, load_library
 from vietvoice_tts_tpu_torch.ops.rope import rope_tables
 
 pytestmark = pytest.mark.cuda
@@ -54,6 +56,78 @@ def _attention_inputs(b, n, heads, head_dim, valid, device, dtype, seed=7):
     )
 
 
+# -- the two wgmma products of attention_mma.cuh, one tile each ---------------
+
+
+def _probe(product, a, b, out, head_dim):
+    fn = load_library("attention_mma_probe").vv_attention_mma_probe
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    err = fn(product, a.data_ptr(), b.data_ptr(), out.data_ptr(), head_dim,
+             torch.cuda.current_stream().cuda_stream)
+    assert err == 0, f"probe launch failed: CUDA error {err}"
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
+def test_cuda_wgmma_qk_product_single_tile(cuda_device, head_dim):
+    """S = Q·Kᵀ of one [64, D] × [64, D] tile: bf16 products are exact in
+    float32, so only the summation order differs from torch's (≤ 1e-4 at
+    these magnitudes). A wrong descriptor or swizzle permutes or drops terms
+    and misses by O(1)."""
+    rng = np.random.default_rng(head_dim)
+    q, k = (torch.from_numpy(rng.standard_normal((64, head_dim)).astype(np.float32))
+            .to(cuda_device, torch.bfloat16) for _ in range(2))
+    out = torch.full((64, 64), float("nan"), device=cuda_device)
+    _probe(0, q, k, out, head_dim)
+    ref = q.float() @ k.float().T
+    assert (out - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
+def test_cuda_wgmma_pv_product_single_tile(cuda_device, head_dim):
+    """O = P·V of one tile, P handed over in registers (rounded to bf16) and V
+    read MN-major as it lies. Against torch on the same rounded P."""
+    rng = np.random.default_rng(100 + head_dim)
+    p = torch.from_numpy(rng.random((64, 64)).astype(np.float32)).to(cuda_device)
+    v = torch.from_numpy(rng.standard_normal((64, head_dim)).astype(np.float32))
+    v = v.to(cuda_device, torch.bfloat16)
+    out = torch.full((64, head_dim), float("nan"), device=cuda_device)
+    _probe(1, p, v, out, head_dim)
+    ref = p.to(torch.bfloat16).float() @ v.float()
+    assert (out - ref).abs().max().item() <= 1e-4
+
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_VARIANT_NAMES = {1: "wgmma", 0: "simt"}
+
+
+def _c_variant(module, dtype, head_dim):
+    """The variant the library's own dispatch takes for (dtype, head_dim)."""
+    fn = getattr(load_library(module.KERNEL), f"vv_{module.KERNEL}_variant")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    return _VARIANT_NAMES.get(fn(head_dim, _DTYPE_CODES[dtype]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("module,head_dim", [
+    (fa, 32), (fa, 64), (fa, 96), (fa, 128), (fa, 256), (fa, 48),
+    (fra, 64), (fra, 128), (fra, 96),
+])
+def test_cuda_wrapper_and_library_choose_the_same_variant(cuda_device, module, head_dim, dtype):
+    if module.supports_shape(2, head_dim, 64):
+        assert _c_variant(module, dtype, head_dim) == module.kernel_variant(dtype, head_dim)
+    else:
+        assert _c_variant(module, dtype, head_dim) is None
+
+
+def test_cuda_bf16_paths_are_on_the_tensor_cores(cuda_device):
+    """Both libraries hold HGMMA, the machine instruction behind wgmma."""
+    for name in (fra.KERNEL, fa.KERNEL):
+        assert count_sass(name, "HGMMA") > 0, name
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("b,n,heads,head_dim", [(2, 512, 8, 128), (2, 512, 16, 64),
                                                 (2, 437, 8, 128)])
@@ -61,6 +135,8 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype, tol, b, n, heads, head_di
     valid = [n - 77, n]
     qkv, cos, sin, mask = _attention_inputs(b, n, heads, head_dim, valid,
                                             cuda_device, dtype)
+    want = "wgmma" if dtype == torch.bfloat16 else "simt"
+    assert _c_variant(fra, dtype, head_dim) == fra.kernel_variant(dtype, head_dim) == want
     before = fra.launches
     out = fra.fused_qkv_rope_attention(qkv, cos, sin, mask, heads)
     torch.cuda.synchronize()
@@ -173,6 +249,8 @@ def _qkv_inputs(b, heads, n, d, valid, device, dtype, packed, seed=11):
 def test_cuda_flash_kernel_matches_plain(cuda_device, dtype, tol, packed, b, heads, n, d):
     valid = [n - 77, n]
     q, k, v, mask = _qkv_inputs(b, heads, n, d, valid, cuda_device, dtype, packed)
+    want = "wgmma" if dtype == torch.bfloat16 and d in (32, 64, 128) else "simt"
+    assert _c_variant(fa, dtype, d) == fa.kernel_variant(dtype, d) == want
     before = fa.launches
     out = fa.flash_attention(q, k, v, mask)
     torch.cuda.synchronize()
@@ -199,6 +277,67 @@ def test_cuda_flash_kernel_without_mask_and_with_a_fully_padded_row(cuda_device)
     assert torch.isfinite(out).all()
     assert (out[1, :, :100] - ref[1, :, :100]).abs().max().item() <= 1e-4
     assert (out[0] - ref[0]).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_cuda_wgmma_flash_kernel_edge_tiles(cuda_device, d):
+    """The tensor-core variant on what its tiles make hard: later key tiles
+    that are padded throughout (their weights are exactly 0, no NaN), a batch
+    row whose keys are all padded (uniform weights, as the plain version
+    gives), no mask, a single partial tile, and v as a strided view."""
+    q, k, v, _ = _qkv_inputs(2, 2, 200, d, [200, 200], cuda_device, torch.bfloat16, True)
+    mask = torch.zeros((2, 200), dtype=torch.bool, device=cuda_device)
+    mask[0, :50] = True
+    out, ref = fa.flash_attention(q, k, v, mask), attention(q, k, v, mask)
+    assert torch.isfinite(out).all()
+    assert (out[0, :, :50].float() - ref[0, :, :50].float()).abs().max().item() <= 1e-2
+    assert (out[1].float() - ref[1].float()).abs().max().item() <= 1e-2
+    out = fa.flash_attention(q, k, v, None)
+    assert (out.float() - attention(q, k, v, None).float()).abs().max().item() <= 1e-2
+    q, k, v, mask = _qkv_inputs(1, 3, 40, d, [33], cuda_device, torch.bfloat16, True)
+    out, ref = fa.flash_attention(q, k, v, mask), attention(q, k, v, mask)
+    assert (out[0, :, :33].float() - ref[0, :, :33].float()).abs().max().item() <= 1e-2
+
+
+def test_cuda_fused_kernel_with_padded_later_tiles(cuda_device):
+    qkv, cos, sin, _ = _attention_inputs(2, 200, 2, 128, [200, 200], cuda_device,
+                                         torch.bfloat16)
+    mask = torch.zeros((2, 200), dtype=torch.bool, device=cuda_device)
+    mask[0, :50] = True
+    mask[1, :130] = True
+    out = fra.fused_qkv_rope_attention(qkv, cos, sin, mask, 2)
+    ref = fra.fused_qkv_rope_attention_reference(qkv, cos, sin, mask, 2)
+    assert torch.isfinite(out).all()
+    for row, nv in enumerate((50, 130)):
+        assert (out[row, :nv].float() - ref[row, :nv].float()).abs().max().item() <= 1e-2
+
+
+def test_cuda_bf16_head_dim_96_still_runs_the_simt_variant(cuda_device):
+    q, k, v, mask = _qkv_inputs(2, 3, 200, 96, [150, 200], cuda_device, torch.bfloat16, True)
+    assert _c_variant(fa, torch.bfloat16, 96) == "simt"
+    before = fa.launches
+    out = fa.flash_attention(q, k, v, mask)
+    assert fa.launches == before + 1
+    ref = attention(q, k, v, mask)
+    for row, nv in enumerate((150, 200)):
+        assert (out[row, :, :nv].float() - ref[row, :, :nv].float()).abs().max().item() <= 1e-2
+
+
+def test_cuda_wgmma_variant_refuses_unaligned_rows(cuda_device):
+    """16-byte copies: a bf16 v whose frame stride is not a multiple of 8
+    elements is refused by the wrapper, and by the library itself."""
+    q, k, v, mask = _qkv_inputs(1, 2, 64, 64, [64], cuda_device, torch.bfloat16, False)
+    odd = torch.zeros((1, 2, 64, 68), dtype=torch.bfloat16, device=cuda_device)[..., :64]
+    before = fa.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(q, k, odd, mask)
+    assert fa.launches == before
+    strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3], *odd.stride()[:3])
+    out = torch.empty((1, 64, 2, 64), dtype=torch.bfloat16, device=cuda_device)
+    err = fa._kernel_entry()(q.data_ptr(), k.data_ptr(), odd.data_ptr(), None, out.data_ptr(),
+                             strides, 1, 2, 64, 64, 1,
+                             torch.cuda.current_stream().cuda_stream)
+    assert err == 716  # cudaErrorMisalignedAddress
 
 
 def test_cuda_flash_wrapper_refusals_and_attention_switch(cuda_device):

@@ -4,33 +4,58 @@
 // (vietvoice_tts_tpu/ops/pallas/fused_rope_attention.py:123, bodies _kernel
 // :89 and _kernel_pair :96). Same function: for batch b and head h, q is read
 // at column h*D of qkv [B, N, 3*H*D], k at (H+h)*D and v at (2H+h)*D; the
-// half-split (NeoX) RoPE is applied to q and k on load, 1/sqrt(D) is folded
-// into q, keys are biased by 0 (valid) or -1e30 (padding), and the softmax
-// runs over the full key axis. The output [B, N, H*D] is written at column
-// h*D, so the DiT's out-projection reads it with no transpose.
+// half-split (NeoX) RoPE is applied to q and k on load, the logits are scaled
+// by 1/sqrt(D), keys are biased by 0 (valid) or -1e30 (padding), and the
+// softmax runs over the full key axis. The output [B, N, H*D] is written at
+// column h*D, so the DiT's out-projection reads it with no transpose.
 //
 // What bounds it on an H100: at serving shapes (N = 256..2048, D = 128) the
 // two products are 4*B*H*N^2*D flops against 3*B*N*H*D*2 bytes of input,
-// i.e. hundreds of flops per byte -- compute-bound. This first version uses
-// the float32 SIMT pipes (about 67 TFLOP/s peak), not the tensor cores, and
-// computes in float32 for bf16 and f32 input alike; only q and k are rounded
-// to the input dtype after RoPE, as the plain version rounds them.
+// i.e. hundreds of flops per byte: operations, not bytes.
 //
-// Design. One block of 256 threads per (64-query tile, head, batch). The
-// TPU kernel held all N keys of a head in VMEM and ran a two-pass exact
-// softmax; shared memory here holds 64 keys at a time, so the block walks
-// the key axis in 64-key tiles with an online softmax (running max and sum,
-// rescaling the accumulator), which computes the same function within
-// rounding. Q (RoPE'd, scaled), K (RoPE'd) and V tiles are staged in shared
-// memory as float32; the tile step itself (logits, softmax update, P.V, and
-// how threads share a tile) is attention_tile.cuh, which flash_attention.cu
-// uses too. Ragged N is masked in-kernel: keys past N get -inf (no weight
-// at all), query rows past N are computed on zeros and not stored.
-// The TPU kernel's head-pair layout for D = 64 was a lane-tiling device of
-// the TPU and is not needed: D is a template parameter (64 or 128).
+// Two variants, chosen from (dtype, head_dim) alone:
 //
-// Later work: tensor cores (wgmma), TMA loads and a deeper key pipeline.
+// "wgmma": bfloat16 (the serving type) at D = 64 and 128. Both products run
+//   on the tensor cores (attention_mma.cuh says how). A block is three
+//   warpgroups, 384 threads, for 128 query rows: two consumers, 64 query
+//   rows each, which do nothing but the two products and the softmax, and
+//   one producer, which feeds them key tiles through a ring of four stages.
+//   RoPE cannot ride on an asynchronous copy, so the producer's threads load
+//   the raw halves of k (columns c and c + D/2, 16 bytes each) with their cos
+//   and sin, rotate in float32, round once to bfloat16 (the bits the plain
+//   version's k carries) and store into the layout the wgmma descriptors
+//   read; V goes beside it by cp.async as it lies. Each consumer rotates its
+//   own 64 query rows the same way, once. Stages change hands through
+//   mbarriers (full: the producer's 128 threads have written; empty: the
+//   consumers' 256 threads have read), so there is no block-wide barrier in
+//   the loop, the consumers drift apart and one's softmax runs under the
+//   other's products, and the rotation, which every block repeats for all N
+//   keys of its head, is off the consumers' path. Both consumers share every
+//   rotated tile: 128-row blocks halve the rotation and the shared-memory
+//   traffic against 64-row ones. Measured against the same kernel without
+//   the producer (two warpgroups that also rotate, one barrier a tile): 9-14%
+//   faster at every 8 x 128 shape, 17% at (2; 512, 16 x 64), 7% slower at
+//   (16; 1024, 16 x 64) (H100, 700 W). 1/sqrt(D) is applied to the float32
+//   logits, not folded into q: 1/sqrt(128) is no power of two, and a scaled q
+//   would not be a bfloat16 number. The weights are rounded to bfloat16 for
+//   P . V, as the TPU kernel rounds them.
+//
+// "simt": float32. float32 arithmetic on the SIMT pipes (67 TFLOP/s peak),
+//   float32 tiles in shared memory, one block of 256 threads per 64 query
+//   rows (attention_tile.cuh); 1/sqrt(D) is folded into q, which float32
+//   carries, and the softmax weights stay float32.
+//
+// Design, both variants. The TPU kernel held all N keys of a head in VMEM and
+// ran a two-pass exact softmax; shared memory here holds 64 keys at a time,
+// so a block walks the key axis in 64-key tiles with an online softmax
+// (running max and sum, rescaling the accumulator), which computes the same
+// function within rounding. Ragged N is masked in-kernel: keys past N get
+// -inf (no weight at all), query rows past N are computed on zeros and not
+// stored. The TPU kernel's head-pair layout for D = 64 was a lane-tiling
+// device of the TPU and is not needed: D is a template parameter. No atomics
+// and no split over keys across blocks: the same inputs give the same bits.
 
+#include "attention_mma.cuh"
 #include "attention_tile.cuh"
 
 namespace {
@@ -148,11 +173,250 @@ cudaError_t launch(const void* qkv, const void* cos_t, const void* sin_t,
   return cudaGetLastError();
 }
 
+// ---- the tensor-core variant (bfloat16) ------------------------------------
+
+namespace mma = vv_mma;
+
+constexpr int MMA_CONSUMERS = 2;  // consumer warpgroups, 64 query rows each
+constexpr int MMA_THREADS = (MMA_CONSUMERS + 1) * mma::WG_THREADS;  // + the producer
+constexpr int MMA_BQ = MMA_CONSUMERS * mma::WG_ROWS;                // queries per block
+constexpr int MMA_STAGES = 4;                                       // K/V tiles in the ring
+
+// Shared memory of one block: the Q tiles (one per consumer), a ring of
+// K tiles, V tiles and key biases, and two mbarriers per stage; 1024 bytes of
+// slack to start on a 1024-byte boundary.
+template <int D>
+struct MmaSmem {
+  static constexpr uint32_t TILE = mma::TileLayout<D>::BYTES;
+  static constexpr uint32_t Q = 0;
+  static constexpr uint32_t K = Q + MMA_CONSUMERS * TILE;
+  static constexpr uint32_t V = K + MMA_STAGES * TILE;
+  static constexpr uint32_t BIAS = V + MMA_STAGES * TILE;
+  static constexpr uint32_t FULL = BIAS + MMA_STAGES * mma::BK * sizeof(float);
+  static constexpr uint32_t EMPTY = FULL + MMA_STAGES * 8;
+  static constexpr size_t BYTES = EMPTY + MMA_STAGES * 8 + 1024;
+};
+
+// A warpgroup thread's share of a batch of raw rows of q or k: two pairs of
+// 16-byte chunks, columns [8c, 8c + 8) and the same D/2 further on, with
+// their cos and sin (24 registers a pair). Pair p of a batch is row
+// p / (D/16), chunk p % (D/16); a batch is 256 pairs, i.e. ROWS rows (32 at
+// D = 128, 64 at D = 64), and a tile of 64 rows is BATCHES of them.
+template <int D>
+struct RawRows {
+  static constexpr int PAIRS_PER_ROW = D / 16;
+  static constexpr int PAIRS = 2;
+  static constexpr int ROWS = PAIRS * mma::WG_THREADS / PAIRS_PER_ROW;
+  static constexpr int BATCHES = mma::TILE_ROWS / ROWS;
+  static_assert(ROWS * BATCHES == mma::TILE_ROWS, "whole batches in a tile");
+  uint4 x[PAIRS][2], cos[PAIRS][2], sin[PAIRS][2];
+
+  // Rows r0 .. r0 + ROWS - 1 of the sequence, by thread t of the warpgroup;
+  // src is the head's column 0 of row 0 and pitch the distance between rows,
+  // in elements. Rows >= n load nothing and rotate to zeros.
+  __device__ __forceinline__ void load(int t, const __nv_bfloat16* __restrict__ src,
+                                       long long pitch,
+                                       const __nv_bfloat16* __restrict__ cos_t,
+                                       const __nv_bfloat16* __restrict__ sin_t, int r0,
+                                       int n) {
+#pragma unroll
+    for (int i = 0; i < PAIRS; ++i) {
+      const int p = t + i * mma::WG_THREADS;
+      const int row = r0 + p / PAIRS_PER_ROW;
+      const int col = 8 * (p % PAIRS_PER_ROW);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int c = col + half * (D / 2);
+        if (row < n) {
+          x[i][half] = __ldg(reinterpret_cast<const uint4*>(src + row * pitch + c));
+          cos[i][half] = __ldg(reinterpret_cast<const uint4*>(cos_t + (long long)row * D + c));
+          sin[i][half] = __ldg(reinterpret_cast<const uint4*>(sin_t + (long long)row * D + c));
+        } else {
+          x[i][half] = cos[i][half] = sin[i][half] = make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+    }
+  }
+
+  // x * cos + rotate_half(x) * sin with (x1, x2) -> (-x2, x1), each product
+  // and the sum rounded to float32 as separate PyTorch operations round
+  // them, then once to bfloat16; stored as rows first_row .. of the tile at
+  // `tile`.
+  __device__ __forceinline__ void rotate_and_store(int t, uint32_t tile, int first_row) const {
+    using L = mma::TileLayout<D>;
+#pragma unroll
+    for (int i = 0; i < PAIRS; ++i) {
+      const int p = t + i * mma::WG_THREADS;
+      const int r = first_row + p / PAIRS_PER_ROW;
+      const int chunk = p % PAIRS_PER_ROW;
+      uint4 lo, hi;
+      rotate_word(x[i][0].x, x[i][1].x, cos[i][0].x, cos[i][1].x, sin[i][0].x, sin[i][1].x,
+                  lo.x, hi.x);
+      rotate_word(x[i][0].y, x[i][1].y, cos[i][0].y, cos[i][1].y, sin[i][0].y, sin[i][1].y,
+                  lo.y, hi.y);
+      rotate_word(x[i][0].z, x[i][1].z, cos[i][0].z, cos[i][1].z, sin[i][0].z, sin[i][1].z,
+                  lo.z, hi.z);
+      rotate_word(x[i][0].w, x[i][1].w, cos[i][0].w, cos[i][1].w, sin[i][0].w, sin[i][1].w,
+                  lo.w, hi.w);
+      mma::st_shared_16(tile + L::offset(r, chunk), lo);
+      mma::st_shared_16(tile + L::offset(r, chunk + PAIRS_PER_ROW), hi);
+    }
+  }
+
+  // Two neighbouring columns of the low half (x1) and of the high half (x2).
+  __device__ static __forceinline__ void rotate_word(uint32_t x1, uint32_t x2, uint32_t c1,
+                                                     uint32_t c2, uint32_t s1, uint32_t s2,
+                                                     uint32_t& out1, uint32_t& out2) {
+    const float2 a = unpack(x1), b = unpack(x2);
+    const float2 ca = unpack(c1), cb = unpack(c2);
+    const float2 sa = unpack(s1), sb = unpack(s2);
+    out1 = pack(__fadd_rn(__fmul_rn(a.x, ca.x), __fmul_rn(-b.x, sa.x)),
+                __fadd_rn(__fmul_rn(a.y, ca.y), __fmul_rn(-b.y, sa.y)));
+    out2 = pack(__fadd_rn(__fmul_rn(b.x, cb.x), __fmul_rn(a.x, sb.x)),
+                __fadd_rn(__fmul_rn(b.y, cb.y), __fmul_rn(a.y, sb.y)));
+  }
+  __device__ static __forceinline__ float2 unpack(uint32_t w) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+  }
+  __device__ static __forceinline__ uint32_t pack(float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS, 1)
+fused_rope_attention_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
+                                const __nv_bfloat16* __restrict__ cos_t,
+                                const __nv_bfloat16* __restrict__ sin_t,
+                                const uint8_t* __restrict__ mask,
+                                __nv_bfloat16* __restrict__ out,
+                                int n, int heads, float scale_log2) {
+  using S = MmaSmem<D>;
+  using Raw = RawRows<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = mma::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  float* bias = reinterpret_cast<float*>(smem_raw + (base - raw) + S::BIAS);
+
+  const int wg = threadIdx.x / mma::WG_THREADS;
+  const int t_wg = threadIdx.x % mma::WG_THREADS;  // index within the warpgroup
+  const int q0 = blockIdx.x * MMA_BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const long long pitch = 3LL * heads * D;
+  const __nv_bfloat16* rows = qkv + (long long)b * n * pitch;
+  const __nv_bfloat16* q_head = rows + h * D;
+  const __nv_bfloat16* k_head = rows + (heads + h) * D;
+  const __nv_bfloat16* v_head = rows + (2 * heads + h) * D;
+  const uint8_t* mask_row = mask + (long long)b * n;
+  const int tiles = (n + mma::BK - 1) / mma::BK;
+
+  // full[s]: the producer's 128 threads have written stage s. empty[s]: the
+  // consumers' 256 threads are done reading it.
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < MMA_STAGES; ++s) {
+      mma::mbarrier_init(base + S::FULL + 8 * s, mma::WG_THREADS);
+      mma::mbarrier_init(base + S::EMPTY + 8 * s, MMA_CONSUMERS * mma::WG_THREADS);
+    }
+    mma::fence_mbarrier_init();
+  }
+  __syncthreads();  // the only block-wide barrier
+
+  if (wg == MMA_CONSUMERS) {
+    // The producer: for each key tile, rotate K into the ring, copy V beside
+    // it, write the key biases, and hand the stage over. The raw K is loaded
+    // before the wait for the stage, so the loads are in flight while the
+    // consumers still read what the stage held. (Loading half a tile further
+    // ahead was tried and was slower, 0.34 against 0.27 ms at B = 16,
+    // N = 1024, 8 heads of 128 on an H100: it needs more registers than the
+    // 168 a thread of a 384-thread block can have.)
+    const mma::TileCopier<D, mma::WG_THREADS> copier(t_wg);
+    for (int t = 0; t < tiles; ++t) {
+      const int stage = t % MMA_STAGES;
+      const uint32_t phase = (t / MMA_STAGES) & 1;
+      Raw raw_k[Raw::BATCHES];
+#pragma unroll
+      for (int i = 0; i < Raw::BATCHES; ++i)
+        raw_k[i].load(t_wg, k_head, pitch, cos_t, sin_t, t * mma::BK + i * Raw::ROWS, n);
+      mma::mbarrier_wait(base + S::EMPTY + 8 * stage, phase ^ 1);
+      copier.copy(base + S::V + stage * S::TILE, v_head, pitch, t * mma::BK, n);
+      mma::cp_async_commit();
+      if (t_wg < mma::BK)
+        bias[stage * mma::BK + t_wg] = mma::key_bias(mask_row, t * mma::BK + t_wg, n);
+#pragma unroll
+      for (int i = 0; i < Raw::BATCHES; ++i)
+        raw_k[i].rotate_and_store(t_wg, base + S::K + stage * S::TILE, i * Raw::ROWS);
+      mma::cp_async_wait<0>();
+      mma::fence_proxy_async();
+      mma::mbarrier_arrive(base + S::FULL + 8 * stage);
+    }
+    return;
+  }
+
+  // A consumer: rotate this warpgroup's 64 query rows into its Q tile, then
+  // take the key tiles as they are handed over.
+  const int row0 = q0 + wg * mma::WG_ROWS;
+  const uint32_t q_addr = base + S::Q + wg * S::TILE;
+  {
+    Raw raw_q;
+#pragma unroll
+    for (int i = 0; i < Raw::BATCHES; ++i) {
+      raw_q.load(t_wg, q_head, pitch, cos_t, sin_t, row0 + i * Raw::ROWS, n);
+      raw_q.rotate_and_store(t_wg, q_addr, i * Raw::ROWS);
+    }
+  }
+  mma::fence_proxy_async();
+  mma::named_barrier(1 + wg, mma::WG_THREADS);  // the Q tile is this warpgroup's alone
+
+  mma::RowState<D> st;
+  st.init();
+  for (int t = 0; t < tiles; ++t) {
+    const int stage = t % MMA_STAGES;
+    const uint32_t phase = (t / MMA_STAGES) & 1;
+    mma::mbarrier_wait(base + S::FULL + 8 * stage, phase);
+    mma::tile_step<D>(q_addr, base + S::K + stage * S::TILE, base + S::V + stage * S::TILE,
+                      bias + stage * mma::BK, scale_log2, st);
+    mma::mbarrier_arrive(base + S::EMPTY + 8 * stage);
+  }
+
+  const long long out_pitch = (long long)heads * D;
+  mma::store_output<D>(st, out + ((long long)b * n + row0) * out_pitch + h * D, out_pitch,
+                       row0, n);
+}
+
+template <int D>
+cudaError_t launch_mma(const void* qkv, const void* cos_t, const void* sin_t,
+                       const void* mask, void* out, int b, int n, int heads,
+                       cudaStream_t stream) {
+  auto kernel = fused_rope_attention_mma_kernel<D>;
+  constexpr size_t smem = MmaSmem<D>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + MMA_BQ - 1) / MMA_BQ, heads, b);
+  kernel<<<grid, MMA_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(qkv), static_cast<const __nv_bfloat16*>(cos_t),
+      static_cast<const __nv_bfloat16*>(sin_t), static_cast<const uint8_t*>(mask),
+      static_cast<__nv_bfloat16*>(out), n, heads, mma::LOG2E / sqrtf((float)D));
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// The variant that serves (head_dim, dtype; 0 = float32, 1 = bfloat16):
+// 1 = "wgmma", 0 = "simt", -1 = no kernel.
+extern "C" int vv_fused_rope_attention_variant(int head_dim, int dtype) {
+  if ((dtype != 0 && dtype != 1) || (head_dim != 64 && head_dim != 128)) return -1;
+  return dtype;
+}
 
 // dtype: 0 = float32, 1 = bfloat16. qkv [b, n, 3*heads*head_dim], cos/sin
 // [n, head_dim] in the same dtype, mask [b, n] uint8 (nonzero = valid key),
-// out [b, n, heads*head_dim]; all contiguous on the current device.
+// out [b, n, heads*head_dim]; all contiguous on the current device. The
+// tensor-core variant needs qkv, cos and sin on 16-byte boundaries
+// (cudaErrorMisalignedAddress otherwise).
 // Returns a cudaError_t (0 on success).
 extern "C" int vv_fused_rope_attention(const void* qkv, const void* cos_t,
                                        const void* sin_t, const void* mask,
@@ -161,13 +425,21 @@ extern "C" int vv_fused_rope_attention(const void* qkv, const void* cos_t,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (b <= 0 || n <= 0 || heads <= 0 || b > 65535 || heads > 65535)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && head_dim == 128)
+  const int variant = vv_fused_rope_attention_variant(head_dim, dtype);
+  if (variant == 1) {
+    // 16-byte loads: every address the kernel derives is a multiple of 8
+    // elements from these.
+    if (reinterpret_cast<uintptr_t>(qkv) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(cos_t) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(sin_t) % 16 != 0)
+      return (int)cudaErrorMisalignedAddress;
+    if (head_dim == 128)
+      return (int)launch_mma<128>(qkv, cos_t, sin_t, mask, out, b, n, heads, s);
+    return (int)launch_mma<64>(qkv, cos_t, sin_t, mask, out, b, n, heads, s);
+  }
+  if (variant == 0 && head_dim == 128)
     return (int)launch<float, 128>(qkv, cos_t, sin_t, mask, out, b, n, heads, s);
-  if (dtype == 0 && head_dim == 64)
+  if (variant == 0)
     return (int)launch<float, 64>(qkv, cos_t, sin_t, mask, out, b, n, heads, s);
-  if (dtype == 1 && head_dim == 128)
-    return (int)launch<__nv_bfloat16, 128>(qkv, cos_t, sin_t, mask, out, b, n, heads, s);
-  if (dtype == 1 && head_dim == 64)
-    return (int)launch<__nv_bfloat16, 64>(qkv, cos_t, sin_t, mask, out, b, n, heads, s);
   return (int)cudaErrorInvalidValue;
 }

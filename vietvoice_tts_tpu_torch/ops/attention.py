@@ -13,14 +13,21 @@ Two roundings differ from the JAX function in bfloat16 (in float32 the two
 are the same function). JAX casts the softmax weights to q's dtype before
 the weighted sum (its einsum takes one input dtype); here they stay float32.
 And the fused path's RoPE (``ops/kernels/fused_rope_attention.py``) is
-computed in float32 and rounded once. Both follow the CUDA kernel, so that
-kernel and plain version round alike and their comparison isolates faults of
-the kernel. It is not closer end to end: on the full 31-step solve the two
-choices of the weights' rounding gave 1.6e-2 and 1.4e-2..1.5e-2 mel
-max-abs, kernel vs plain, inside the 1.1e-2..1.7e-2 noise floor of that
-solve (NVIDIA H100 80GB HBM3, 700 W; ``PERF.md``). How far the bf16 path
-stays from the JAX one is held by ``tests/test_torch_kernels.py`` against
-the Pallas kernel.
+computed in float32 and rounded once.
+
+The CUDA kernels' bfloat16 variants run P·V on the tensor cores, which take
+bfloat16 operands, so they do round the (unnormalized) weights to bfloat16,
+as the TPU kernels and the JAX function do. This plain version keeps its
+float32 weights all the same: it is the more exact of the two, every CPU
+parity test against the JAX package stands on it unchanged, and the card
+shows the kernels inside the tolerances that stand with it: per call 9.8e-4
+to 3.9e-3 max-abs at every serving shape (bound 1e-2), and 1.6e-2 to 2.0e-2
+on the full 31-step mel latent, where that solve's own noise floor under a
+change of float32 summation order is 1.1e-2 to 1.7e-2 (bound 5e-2; NVIDIA
+H100 80GB HBM3, 700 W; ``chip_smoke.py``, ``PERF.md``).
+``tests/test_torch_attention_mma.py`` models the kernels' arithmetic in
+PyTorch and holds it against this function, the JAX one and the Pallas
+kernels on the CPU.
 """
 
 from __future__ import annotations

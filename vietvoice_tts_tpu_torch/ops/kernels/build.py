@@ -9,6 +9,12 @@ rebuilt and a built one is reused. Different libraries may build at the same
 time (one lock per name). Nothing is built
 when a module is imported: the CPU tests import every module on machines
 without ``nvcc``.
+
+``ptxas`` reports each kernel's registers, shared memory and spills
+(``-Xptxas -v``); the report is kept beside the library (``.log``) and any
+warning in it is logged. :func:`count_sass` counts instructions of the built
+code, which is how a run shows that the bfloat16 paths are on the tensor
+cores (``HGMMA`` is the machine instruction behind ``wgmma``).
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / PACKAGE_DIR.name
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()  # guards the two dicts below
@@ -89,6 +95,10 @@ def load_library(name: str) -> ctypes.CDLL:
                     raise RuntimeError(
                         f"nvcc failed building {name}.cu:\n{proc.stderr}"
                     )
+                out.with_suffix(".log").write_text(proc.stderr)
+                for line in proc.stderr.splitlines():
+                    if "warning" in line.lower():
+                        log.warning("nvcc, %s.cu: %s", name, line)
                 os.replace(tmp, out)
             finally:
                 if os.path.exists(tmp):
@@ -97,3 +107,22 @@ def load_library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(out))
         _libraries[name] = lib
         return lib
+
+
+def build_report(name: str) -> str:
+    """What ``ptxas -v`` said when ``csrc/<name>.cu`` was built (registers,
+    shared memory and spills of each kernel); builds it if needed."""
+    load_library(name)
+    return library_path(name).with_suffix(".log").read_text()
+
+
+def count_sass(name: str, mnemonic: str) -> int:
+    """How many machine instructions of the built ``csrc/<name>.cu`` carry
+    ``mnemonic`` (``cuobjdump -sass``, from the toolkit that holds ``nvcc``)."""
+    load_library(name)
+    cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
+    proc = subprocess.run(
+        [str(cuobjdump), "-sass", str(library_path(name))],
+        capture_output=True, text=True, check=True,
+    )
+    return sum(mnemonic in line for line in proc.stdout.splitlines())

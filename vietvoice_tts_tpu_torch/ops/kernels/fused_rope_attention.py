@@ -3,7 +3,10 @@
 Port of the Pallas TPU kernel ``fused_qkv_rope_attention``
 (``vietvoice_tts_tpu/ops/pallas/fused_rope_attention.py:123``). The kernel
 itself is ``csrc/fused_rope_attention.cu`` (its header says how it is laid
-out on the card); this module holds
+out on the card). It has two variants, chosen from (dtype, head_dim) alone
+(:func:`kernel_variant`): ``"wgmma"``, bfloat16 (the serving type), runs both
+products on Hopper's tensor cores and rounds the softmax weights to bfloat16
+for P·V; ``"simt"``, float32, computes on the SIMT pipes. This module holds
 
 - :func:`fused_qkv_rope_attention`, the wrapper: it checks its inputs,
   launches the kernel for CUDA tensors (or raises) and runs the plain
@@ -13,7 +16,8 @@ out on the card); this module holds
   which is also the DiT's non-kernel path;
 - ``launches``, a count of kernel launches, so a run can show that the main
   path went through the kernel;
-- :func:`supports_shape`, the shapes the kernel takes.
+- :func:`supports_shape`, the shapes the kernel takes, and
+  :func:`kernel_variant`, which variant serves a dtype and head_dim.
 """
 
 from __future__ import annotations
@@ -39,6 +43,19 @@ def supports_shape(heads: int, head_dim: int, n: int) -> bool:
     (any frame count; head_dim 64 or 128, which covers the default 8×128
     model and converted F5 models, 16×64)."""
     return heads >= 1 and n >= 1 and head_dim in HEAD_DIMS
+
+
+def kernel_variant(dtype: torch.dtype, head_dim: int) -> str:
+    """The variant of the CUDA kernel that serves this dtype and head_dim:
+    ``"wgmma"`` (tensor cores) or ``"simt"`` (float32 pipes). The choice the C
+    entry point makes, restated here so that tests without a card hold it."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"the fused attention kernel takes float32 or bfloat16, got {dtype}")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(
+            f"the fused attention kernel takes head_dim in {HEAD_DIMS}, got {head_dim}"
+        )
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
 
 
 def fused_qkv_rope_attention_reference(
