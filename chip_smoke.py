@@ -41,6 +41,27 @@ check raises):
    through ``synthesize_streaming`` (≥ 2 pieces, 682 launches per chunk,
    held against the blocking output within STREAM_TOLERANCE); and a short
    request on the 32 × 32 model.
+6. Concurrent serving through the micro-batcher: one ``TTSApi`` with
+   ``enable_micro_batching`` and ``warmup`` of the shapes used; eight client
+   threads with one short sentence each, released together (twice); the long
+   text and two short requests together; the long text streamed through the
+   batcher; then 24 jobs at once with ``pipeline_depth`` 1 and 2 (time from
+   submit to the first resolved future). The phase-5 ``short`` and ``long``
+   must come back within STREAM_TOLERANCE of their solo outputs, with no
+   retry and no failure, more than one job per batch, 682 launches of the
+   fused kernel per dispatched batch and none of the other, cache hits for
+   the shared voice, and a batcher that refuses work after ``cleanup``. Then
+   four threads on the 32 × 32 model (682 ``flash_attention`` launches per
+   batch).
+7. The command line: ``python -m vietvoice_tts_tpu_torch`` as a subprocess
+   with no ``--device``, default voice and a cloned voice: exit code 0, a
+   24 kHz mono int16 WAV with sound in it, and in its output the device
+   (``cuda``) and 682 launches of the fused kernel.
+8. The REST app in process (``AsyncTestClient``), engine on the card with the
+   batcher: health reports CUDA and one device; four ``/synthesize`` posts
+   gathered at once return four WAVs; ``/synthesize/stream`` yields a header
+   and ≥ 2 pieces for the long text; ``/stats`` holds device memory and the
+   batcher's numbers; ``/metrics`` parses.
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``. Weights are random, made from a seed, and
@@ -49,14 +70,18 @@ kept under ``build/chip_smoke/`` in the checkout.
 
 from __future__ import annotations
 
+import asyncio
 import concurrent.futures
 import dataclasses
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import wave as wave_file
 from pathlib import Path
 
 import numpy as np
@@ -501,26 +526,33 @@ def _timed_request(name, cfg, smi, synthesize):
     return wave
 
 
-def phase_serving(cfg, cfg32, smi: str) -> dict:
+SHORT_TEXT = "Xin chào, hôm nay trời rất đẹp."
+# 16 equal sentences plan to three chunks that share the 2048 bucket.
+LONG_TEXT = " ".join(
+    ["Nguoi dan thanh pho thuc day som de chuan bi cho mot ngay lam viec moi."] * 16
+)
+# The REST schema takes at most 1000 characters: 13 of the sentences (two chunks or more).
+REST_LONG_TEXT = LONG_TEXT[: 13 * 72 - 1]
+CLONE_TEXT = "Đây là giọng nói được nhân bản từ tệp âm thanh."
+CLONE_REFERENCE_TEXT = "Xin chào, đây là giọng nói của tôi."
+
+
+def phase_serving(cfg, cfg32, smi: str) -> tuple[dict, dict]:
     """Serve through ``TTSApi`` on both models; returns each kernel's launch
-    count over the requests (counters set to 0 just before, read just after)."""
+    count over the requests (counters set to 0 just before, read just after)
+    and the 8×128 outputs by request name."""
     import torch
 
     from vietvoice_tts_tpu_torch import TTSApi
 
     clone_wav = WORK / "clone_voice.wav"
     _write_clone_wav(clone_wav, cfg.sample_rate)
-    short = "Xin chào, hôm nay trời rất đẹp."
-    # 16 equal sentences plan to three chunks that share the 2048 bucket.
-    long_text = " ".join(
-        ["Nguoi dan thanh pho thuc day som de chuan bi cho mot ngay lam viec moi."] * 16
-    )
+    short, long_text = SHORT_TEXT, LONG_TEXT
     requests = [
         ("short", short, {}),
         ("short-again", short, {}),
-        ("clone", "Đây là giọng nói được nhân bản từ tệp âm thanh.",
-         {"reference_audio": str(clone_wav),
-          "reference_text": "Xin chào, đây là giọng nói của tôi."}),
+        ("clone", CLONE_TEXT,
+         {"reference_audio": str(clone_wav), "reference_text": CLONE_REFERENCE_TEXT}),
         ("long", long_text, {}),
     ]
     per_batch = cfg.dit_depth * (cfg.nfe_step - 1)
@@ -593,7 +625,370 @@ def phase_serving(cfg, cfg32, smi: str) -> dict:
         raise AssertionError(f"32x32 serving launched {launches32}")
     log(f"[5] 32x32 serving: {launches32['flash']} flash launches")
     api32.cleanup()
-    return {"fused_rope": launches["fused_rope"], "flash": launches32["flash"]}
+    return {"fused_rope": launches["fused_rope"], "flash": launches32["flash"]}, outputs
+
+
+# Candidates for phase 6's short requests: those that plan to SHORT_TEXT's
+# frame bucket are used.
+SHORT_CANDIDATES = [
+    SHORT_TEXT,
+    "Xin chào, hôm nay trời rất ấm.",
+    "Chào bạn, hôm nay trời rất mát.",
+    "Xin chào, chiều nay trời khá đẹp.",
+    "Chào anh, sáng nay trời rất đẹp.",
+    "Xin mời, hôm nay quán rất vắng.",
+    "Cảm ơn, hôm nay tôi rất khỏe.",
+    "Xin lỗi, hôm nay tôi đến muộn.",
+    "Chào chị, tối nay trời rất lạnh.",
+    "Vâng ạ, ngày mai tôi sẽ đến.",
+    "Xin chào, tuần này tôi khá bận.",
+    "Chào em, hôm qua trời mưa to.",
+]
+
+
+def _check_wave(name: str, wave) -> None:
+    if wave.dtype != np.int16 or wave.size == 0 or not np.any(wave):
+        raise AssertionError(f"{name}: bad audio dtype={wave.dtype} size={wave.size}")
+
+
+def _check_against_solo(name: str, wave, solo) -> None:
+    if wave.shape != solo.shape:
+        raise AssertionError(f"{name}: {wave.shape} samples, solo {solo.shape}")
+    diff = np.abs(wave.astype(np.int32) - solo.astype(np.int32))
+    max_diff, mean_diff = int(diff.max()), float(diff.mean())
+    log(f"[6] {name} against its solo run: largest sample difference {max_diff} "
+        f"(tol {STREAM_TOLERANCE[0]}), mean {mean_diff:.4f} (tol {STREAM_TOLERANCE[1]}) of 32767")
+    if max_diff > STREAM_TOLERANCE[0] or mean_diff > STREAM_TOLERANCE[1]:
+        raise AssertionError(f"{name} through the batcher differs from solo beyond STREAM_TOLERANCE")
+
+
+def _concurrent_round(label, api, texts, smi, route, per_batch):
+    """Release one client thread per text together; check and log the round.
+    Returns ({text: waveform}, wall seconds, launches of ``route``,
+    (batches, jobs))."""
+    import torch
+
+    engine = api.engine
+    stats, core = engine.batcher.stats, engine.engine_core
+    before = dataclasses.replace(stats)
+    hits0, misses0 = core.cond_cache_hits, core.cond_cache_misses
+    start = threading.Barrier(len(texts) + 1)
+    waves, walls, errors = {}, {}, []
+
+    def client(text):
+        try:
+            start.wait(timeout=60)
+            t0 = time.perf_counter()
+            waves[text], _ = api.synthesize(text)
+            walls[text] = time.perf_counter() - t0
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in texts]
+    for t in threads:
+        t.start()
+    _reset_launches()
+    start.wait(timeout=60)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=300)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _launches()
+    if errors or len(waves) != len(texts):
+        raise AssertionError(f"{label}: {len(waves)} of {len(texts)} requests came back: {errors}")
+    for text, w in waves.items():
+        _check_wave(f"{label} {text[:24]!r}", w)
+    batches = stats.batches - before.batches
+    jobs = stats.jobs - before.jobs
+    padded = stats.padded_rows - before.padded_rows
+    if stats.failures or stats.retries:
+        raise AssertionError(f"{label}: {stats.failures} failures, {stats.retries} retries")
+    other = "flash" if route == "fused_rope" else "fused_rope"
+    if got[route] != batches * per_batch or got[other] != 0:
+        raise AssertionError(
+            f"{label}: launches {got}, want {batches} batches × {per_batch} of {route}")
+    secs = sum(w.size for w in waves.values()) / api.config.sample_rate
+    log(f"[6] {label}: {len(texts)} requests in {wall * 1e3:.1f} ms wall, {secs:.2f} s audio, "
+        f"{secs / wall:.2f} audio-s/s; {batches} batches, mean batch size "
+        f"{jobs / batches:.2f}, {padded} padded rows; slowest request "
+        f"{max(walls.values()) * 1e3:.1f} ms, median {statistics.median(walls.values()) * 1e3:.1f} ms; "
+        f"cond cache +{core.cond_cache_hits - hits0} hits +{core.cond_cache_misses - misses0} "
+        f"misses; {got[route]} {route} launches [{smi}]")
+    return waves, wall, got[route], (batches, jobs)
+
+
+def _depth_round(engine, text, n_jobs, depth, smi) -> int:
+    """Submit ``n_jobs`` copies of one short request at once to a fresh
+    batcher of the given depth; log the time to the first resolved future and
+    to the last. Returns the kernel launches it made."""
+    from vietvoice_tts_tpu_torch.serving.batcher import MicroBatcher
+
+    ref_audio, ref_text = engine.model_session_manager.select_sample()
+    ref = engine._load_ref(ref_audio).astype(np.float32) / 32768.0
+    plans = engine._plan_chunks(ref, ref_text, text) * n_jobs
+    engine.batcher = MicroBatcher(engine.engine_core, pipeline_depth=depth)
+    try:
+        _reset_launches()
+        t0 = time.perf_counter()
+        jobs = engine._submit_chunks(plans, ref)
+        done = {}
+        for _, job in jobs:
+            job.future.add_done_callback(
+                lambda f: done.setdefault(id(f), time.perf_counter() - t0))
+        for _, job in jobs:
+            _check_wave(f"depth {depth}", job.future.result(timeout=300))
+        times = sorted(done.values())
+        stats = engine.batcher.stats
+        if stats.failures or stats.retries or stats.jobs != n_jobs:
+            raise AssertionError(f"depth {depth}: {stats}")
+        log(f"[6] pipeline_depth={depth}: {n_jobs} jobs submitted at once, {stats.batches} "
+            f"batches; first future after {times[0] * 1e3:.1f} ms, median "
+            f"{statistics.median(times) * 1e3:.1f} ms, last {times[-1] * 1e3:.1f} ms [{smi}]")
+        return _launches()["fused_rope"]
+    finally:
+        engine.batcher.shutdown()
+        engine.batcher = None
+
+
+def phase_batcher(cfg, cfg32, smi: str, solo: dict) -> dict:
+    """Concurrent requests through the micro-batcher on both models; returns
+    each kernel's launches over the rounds (counters set to 0 just before
+    each round and read just after; the warmups do not count)."""
+    import torch
+
+    from vietvoice_tts_tpu_torch import TTSApi
+    from vietvoice_tts_tpu_torch.serving.batcher import ChunkJob
+
+    per_batch = cfg.dit_depth * (cfg.nfe_step - 1)
+    api = TTSApi(cfg)
+    engine = api.engine
+    ref_audio, ref_text = engine.model_session_manager.select_sample()
+    ref = engine._load_ref(ref_audio).astype(np.float32) / 32768.0
+
+    def bucket_of(text):
+        plans = engine._plan_chunks(ref, ref_text, text)
+        return plans[0].bucket if len(plans) == 1 else None
+
+    short_bucket = bucket_of(SHORT_TEXT)
+    texts = [t for t in SHORT_CANDIDATES if bucket_of(t) == short_bucket][:8]
+    if len(texts) < 8:
+        raise AssertionError(f"only {len(texts)} short texts plan to bucket {short_bucket}")
+    long_bucket = engine._plan_chunks(ref, ref_text, LONG_TEXT)[0].bucket
+
+    batcher = engine.enable_micro_batching()
+    t0 = time.perf_counter()
+    engine.warmup(buckets=(short_bucket,))
+    engine.warmup(batches=(1, 2, 3), buckets=(long_bucket,))
+    torch.cuda.synchronize()
+    log(f"[6] 8x128: batcher attached (max_batch {batcher.max_batch}, depth "
+        f"{batcher.pipeline_depth}), warmup of bucket {short_bucket} × {cfg.batch_grid()} and "
+        f"bucket {long_bucket} × (1, 2, 3) in {time.perf_counter() - t0:.1f} s")
+    total = 0
+
+    # (a) Eight short requests at once, twice: the second round finds every
+    # buffer of its shapes taken already and must not be slower for it.
+    first = _concurrent_round("(a) eight short", api, texts, smi, "fused_rope", per_batch)
+    again = _concurrent_round("(a) eight short, again", api, texts, smi, "fused_rope", per_batch)
+    for waves, wall, launched, (batches, jobs) in (first, again):
+        total += launched
+        if not jobs / batches > 1:
+            raise AssertionError(f"(a): mean batch size {jobs / batches} is not above 1")
+        _check_against_solo("(a) short", waves[SHORT_TEXT], solo["short"])
+    # Per dispatched batch: whether the eight land in one collection window
+    # (max_wait_ms 5) or in two is up to the client threads' timing, and a
+    # round of two batches takes the host twice as long to queue.
+    per_batch_s = [wall / batches for _, wall, _, (batches, _) in (first, again)]
+    if per_batch_s[1] > 1.5 * per_batch_s[0]:
+        raise AssertionError(
+            f"(a): {per_batch_s[1]:.3f} s a batch in the second round against "
+            f"{per_batch_s[0]:.3f} s in the first")
+    core = engine.engine_core
+    if not core.cond_cache_hits >= 15:  # 16 requests share the default voice
+        raise AssertionError(f"cond cache: {core.cond_cache_hits} hits after 16 requests")
+
+    # (b) The long text (three chunks) with two short requests.
+    waves, _, launched, _ = _concurrent_round(
+        "(b) long + two short", api, [LONG_TEXT, *texts[:2]], smi, "fused_rope", per_batch)
+    total += launched
+    _check_against_solo("(b) long", waves[LONG_TEXT], solo["long"])
+    _check_against_solo("(b) short", waves[SHORT_TEXT], solo["short"])
+
+    # (c) The long text streamed with the batcher attached.
+    before = batcher.stats.batches
+    _reset_launches()
+    t0 = time.perf_counter()
+    pieces, first_piece = [], None
+    for piece in api.synthesize_streaming(LONG_TEXT):
+        if first_piece is None:
+            first_piece = time.perf_counter() - t0
+        pieces.append(piece)
+    wall = time.perf_counter() - t0
+    got = _launches()
+    batches = batcher.stats.batches - before
+    if len(pieces) < 2 or got != {"fused_rope": batches * per_batch, "flash": 0}:
+        raise AssertionError(f"(c): {len(pieces)} pieces, {batches} batches, launches {got}")
+    total += got["fused_rope"]
+    log(f"[6] (c) long streamed through the batcher: {len(pieces)} pieces, first after "
+        f"{first_piece * 1e3:.1f} ms, all after {wall * 1e3:.1f} ms, {batches} batch(es) [{smi}]")
+    _check_against_solo("(c) long streamed", np.concatenate(pieces), solo["long"])
+    if batcher.stats.failures or batcher.stats.retries:
+        raise AssertionError(f"8x128 batcher: {batcher.stats}")
+
+    # After cleanup the batcher refuses work.
+    api.cleanup()
+    if batcher.healthy:
+        raise AssertionError("batcher still healthy after cleanup()")
+    try:
+        batcher.submit(ChunkJob(bucket=short_bucket, wave=np.zeros(1, np.float32), ref_len=1,
+                                total_len=2, text_ids=np.zeros(1, np.int32), seed=0))
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("submit after cleanup() did not raise")
+
+    # Submit-to-first-future at depth 1 and 2: three batches of eight.
+    engine = TTSApi(cfg).engine
+    engine.warmup(batches=(8,), buckets=(short_bucket,))
+    for depth in (1, 2):
+        launched = _depth_round(engine, SHORT_TEXT, 24, depth, smi)
+        if launched != 3 * per_batch:
+            raise AssertionError(f"depth {depth}: {launched} launches, want {3 * per_batch}")
+        total += launched
+    engine.cleanup()
+
+    # The 32 × 32 model: four threads, flash_attention.
+    api32 = TTSApi(cfg32)
+    api32.engine.enable_micro_batching()
+    api32.engine.warmup(batches=(1, 2, 3, 4), buckets=(short_bucket,))
+    waves, _, launched32, (batches, jobs) = _concurrent_round(
+        "32x32 four short", api32, texts[:4], smi, "flash", per_batch)
+    if not jobs / batches > 1:
+        raise AssertionError(f"32x32: mean batch size {jobs / batches} is not above 1")
+    api32.cleanup()
+    return {"fused_rope": total, "flash": launched32}
+
+
+def phase_cli(cfg, smi: str) -> None:
+    """The command line as a user starts it: no ``--device``, so on the card."""
+    clone_wav = WORK / "clone_voice.wav"
+    per_batch = cfg.dit_depth * (cfg.nfe_step - 1)
+    runs = [
+        ("default voice", SHORT_TEXT, []),
+        ("cloned voice", CLONE_TEXT,
+         ["--reference-audio", str(clone_wav), "--reference-text", CLONE_REFERENCE_TEXT]),
+    ]
+    for name, text, extra in runs:
+        out = WORK / f"cli_{name.split()[0]}.wav"
+        out.unlink(missing_ok=True)
+        cmd = [sys.executable, "-m", "vietvoice_tts_tpu_torch", text, str(out),
+               "--model-cache-dir", str(WORK / "models"), *extra]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
+                              env={**os.environ, "VIETVOICE_LOG_LEVEL": "WARNING"})
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"CLI ({name}) exited {proc.returncode}:\n{proc.stderr[-2000:]}")
+        device = re.search(r"^Device: (\w+)", proc.stdout, re.M)
+        launched = re.search(r"fused_qkv_rope_attention=(\d+), flash_attention=(\d+)", proc.stdout)
+        took = re.search(r"Generation took ([\d.]+)s", proc.stdout)
+        if not (device and launched and took):
+            raise AssertionError(f"CLI ({name}) printed no device report:\n{proc.stdout[-2000:]}")
+        if device.group(1) != "cuda" or launched.groups() != (str(per_batch), "0"):
+            raise AssertionError(f"CLI ({name}): device {device.group(1)}, launches {launched.groups()}")
+        with wave_file.open(str(out), "rb") as fh:
+            fmt = (fh.getframerate(), fh.getnchannels(), fh.getsampwidth())
+            pcm = np.frombuffer(fh.readframes(fh.getnframes()), "<i2")
+        if fmt != (cfg.sample_rate, 1, 2) or pcm.size == 0 or not np.any(pcm):
+            raise AssertionError(f"CLI ({name}): WAV {fmt}, {pcm.size} samples")
+        log(f"[7] CLI, {name}: exit 0 in {wall:.1f} s wall (generation {took.group(1)} s), "
+            f"device cuda, {launched.group(1)} fused_rope launches, "
+            f"{pcm.size / cfg.sample_rate:.2f} s of 24 kHz mono int16 [{smi}]")
+
+
+async def _stream_pieces(app, path: str, body: dict) -> tuple[int, list[bytes]]:
+    """POST to the ASGI app directly → (status, the body messages as sent)."""
+    status, pieces = [], []
+    messages = [{"type": "http.request", "body": json.dumps(body).encode(), "more_body": False}]
+
+    async def receive():
+        return messages.pop(0) if messages else {"type": "http.disconnect"}
+
+    async def send(message):
+        if message["type"] == "http.response.start":
+            status.append(message["status"])
+        elif message["type"] == "http.response.body" and message.get("body"):
+            pieces.append(message["body"])
+
+    await app({"type": "http", "method": "POST", "path": path, "query_string": b""}, receive, send)
+    return status[0], pieces
+
+
+def phase_rest(cfg, smi: str) -> int:
+    """The REST app in process, its engine on the card behind the batcher;
+    returns the fused kernel's launches."""
+    os.environ["VIETVOICE_ALLOW_SYNTHETIC"] = "1"
+    os.environ["VIETVOICE_TPU_CACHE"] = str(WORK / "models")
+    os.environ["TMP_DIR_PATH"] = str(WORK / "rest_tmp")
+    import importlib
+
+    app_module = importlib.import_module("vietvoice_tts_tpu_torch.api.app")
+    from vietvoice_tts_tpu_torch.api import tts_engine as te
+    from vietvoice_tts_tpu_torch.api.testing import AsyncTestClient
+
+    per_batch = cfg.dit_depth * (cfg.nfe_step - 1)
+    client = AsyncTestClient(app_module.app)
+    texts = SHORT_CANDIDATES[:4]
+
+    async def drive():
+        health = (await client.get("/api/v1/health")).json()
+        if (health["status"], health["backend"], health["device_count"]) != ("healthy", "cuda", 1):
+            raise AssertionError(f"health: {health}")
+        t0 = time.perf_counter()
+        posts = await asyncio.gather(
+            *(client.post("/api/v1/synthesize", json={"text": t}) for t in texts))
+        wall = time.perf_counter() - t0
+        for resp in posts:
+            if resp.status_code != 200 or resp.content[:4] != b"RIFF":
+                raise AssertionError(f"/synthesize: {resp.status_code} {resp.content[:80]!r}")
+            pcm = np.frombuffer(resp.content[44:], "<i2")
+            _check_wave("/synthesize", pcm)
+        status, pieces = await _stream_pieces(
+            app_module.app, "/api/v1/synthesize/stream", {"text": REST_LONG_TEXT})
+        if status != 200 or pieces[0][:4] != b"RIFF" or len(pieces) < 3:
+            raise AssertionError(
+                f"/synthesize/stream: {status}, {len(pieces)} body messages: {pieces[:1]}")
+        _check_wave("/synthesize/stream", np.frombuffer(b"".join(pieces[1:]), "<i2"))
+        health = (await client.get("/api/v1/health")).json()
+        if not (health["engine_loaded"] and health["batcher_healthy"] and health["synthetic_weights"]):
+            raise AssertionError(f"health after load: {health}")
+        stats = (await client.get("/api/v1/stats")).json()
+        batcher = stats["batcher"]
+        if not stats["hbm"] or not stats["hbm"].get("bytes_in_use"):
+            raise AssertionError(f"/stats hbm: {stats['hbm']}")
+        if not batcher or batcher["failures"] or batcher["retries"] or batcher["jobs"] < 7:
+            raise AssertionError(f"/stats batcher: {batcher}")
+        metrics = (await client.get("/metrics")).text
+        samples = [ln for ln in metrics.splitlines() if ln and not ln.startswith("#")]
+        for line in samples:
+            float(line.rsplit(" ", 1)[1])  # raises on a line that does not parse
+        if not any(ln.startswith("vietvoice_batches_total ") for ln in samples):
+            raise AssertionError("/metrics lacks the batcher's counters")
+        return wall, len(pieces) - 1, batcher, stats
+
+    _reset_launches()
+    try:
+        wall, n_pieces, batcher, stats = asyncio.run(drive())
+    finally:
+        te.reset_engine()
+    got = _launches()
+    if got != {"fused_rope": batcher["batches"] * per_batch, "flash": 0}:
+        raise AssertionError(f"REST: launches {got} for {batcher['batches']} batches")
+    log(f"[8] REST in process: health cuda / 1 device; four /synthesize posts gathered in "
+        f"{wall * 1e3:.1f} ms (engine load and first use included); /synthesize/stream "
+        f"{n_pieces} pieces; batcher {batcher}; cond cache {stats['cond_cache']}; "
+        f"{stats['hbm']['bytes_in_use'] / 2**30:.2f} GiB in use; /metrics parses [{smi}]")
+    return got["fused_rope"]
 
 
 def main() -> int:
@@ -628,8 +1023,17 @@ def main() -> int:
     cfg32 = dataclasses.replace(cfg, dit_heads=32)
     phase_whole_path(cfg, cfg32, card)
     torch.cuda.synchronize()
-    launches = phase_serving(cfg, cfg32, smi)
+    launches, solo = phase_serving(cfg, cfg32, smi)
     torch.cuda.synchronize()
+    batched = phase_batcher(cfg, cfg32, smi, solo)
+    torch.cuda.synchronize()
+    phase_cli(cfg, smi)
+    rest_launches = phase_rest(cfg, smi)
+    torch.cuda.synchronize()
+    launches = {
+        "fused_rope": launches["fused_rope"] + batched["fused_rope"] + rest_launches,
+        "flash": launches["flash"] + batched["flash"],
+    }
     fused_record["launches"] = launches["fused_rope"]
     flash_record["launches"] = launches["flash"]
     if not all(launches.values()):

@@ -11,6 +11,7 @@ bfloat16 max-abs 1e-2 (about one bf16 ulp of an output below 2).
 """
 
 import ctypes
+import dataclasses
 import os
 import subprocess
 import sys
@@ -483,3 +484,104 @@ def test_cuda_deterministic_setup_gives_identical_audio(cuda_device, tmp_path):
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("OK")
+
+
+# -- concurrent serving: the micro-batcher, memory statistics, the REST app -----
+
+
+def test_cuda_eight_threads_through_the_batcher_match_solo(cuda_device, tmp_path):
+    """Eight client threads share device batches. Per-row seeds make a row's
+    noise independent of its batchmates; cuBLAS may sum in another order at
+    another batch size, which in float32 with TF32 off moves a sample across
+    an int16 truncation step here and there: at most 2 of 32767 against the
+    same request run alone. Every dispatched batch launches the attention
+    kernel once per block and per DiT evaluation."""
+    import threading
+
+    import vietvoice_tts_tpu_torch as vt
+
+    texts = [f"Xin chào, đây là câu số {i}." for i in range(8)]
+    cfg = dataclasses.replace(_tiny_cuda_config(tmp_path), max_batch_size=8)
+    with vt.TTSApi(cfg) as api:
+        solo = {t: api.synthesize(t)[0] for t in texts}
+        batcher = api.engine.enable_micro_batching(max_wait_ms=50)
+        api.engine.warmup(buckets=(256,))
+        torch.cuda.synchronize()
+        start = threading.Barrier(len(texts))
+        got, errors = {}, []
+
+        def client(text):
+            try:
+                start.wait(timeout=60)
+                got[text] = api.synthesize(text)[0]
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(e)
+
+        before = fa.launches
+        threads = [threading.Thread(target=client, args=(t,)) for t in texts]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        torch.cuda.synchronize()
+        launched = fa.launches - before
+        stats = batcher.stats
+        assert not errors and set(got) == set(texts)
+        assert stats.jobs == 8 and stats.failures == 0 and stats.retries == 0
+        assert stats.mean_batch_size > 1
+        assert launched == stats.batches * cfg.dit_depth * (cfg.nfe_step - 1)
+        for t in texts:
+            assert got[t].shape == solo[t].shape and np.any(got[t])
+            diff = np.abs(got[t].astype(np.int32) - solo[t].astype(np.int32))
+            assert diff.max() <= 2, f"{t!r}: largest sample difference {diff.max()}"
+    assert not batcher.healthy
+    with pytest.raises(RuntimeError):
+        batcher.submit(None)
+
+
+def test_cuda_device_memory_stats(cuda_device):
+    from vietvoice_tts_tpu_torch.utils.profiling import device_memory_stats, log_memory
+
+    keep = torch.ones(1 << 20, device=cuda_device)
+    stats = device_memory_stats()
+    assert stats["bytes_in_use"] >= keep.numel() * 4
+    assert stats["peak_bytes_in_use"] >= stats["bytes_in_use"]
+    assert stats["bytes_limit"] > stats["bytes_reserved"] >= stats["bytes_in_use"]
+    assert 0 < stats["bytes_free"] < stats["bytes_limit"]
+    assert device_memory_stats(cuda_device) == device_memory_stats(0)
+    assert device_memory_stats("cpu") == {}
+    log_memory("test")
+
+
+def test_cuda_rest_health_reports_cuda(cuda_device, tmp_path):
+    pytest.importorskip("pydantic")
+    pytest.importorskip("anyio")
+    import asyncio
+    import importlib
+
+    from vietvoice_tts_tpu_torch.api import tts_engine as te
+    from vietvoice_tts_tpu_torch.api.testing import AsyncTestClient
+
+    app_module = importlib.import_module("vietvoice_tts_tpu_torch.api.app")
+    old = te._engine_config
+    te.reset_engine()
+    te._engine_config = _tiny_cuda_config(tmp_path)
+    client = AsyncTestClient(app_module.app)
+    try:
+        async def drive():
+            posted = await asyncio.gather(
+                *(client.post("/api/v1/synthesize", json={"text": f"Xin chào số {i}."})
+                  for i in range(3)))
+            return (posted, (await client.get("/api/v1/health")).json(),
+                    (await client.get("/api/v1/stats")).json())
+
+        posted, health, stats = asyncio.run(drive())
+        assert all(r.status_code == 200 and r.content[:4] == b"RIFF" for r in posted)
+        assert health["backend"] == "cuda"
+        assert health["device_count"] == torch.cuda.device_count()
+        assert health["engine_loaded"] and health["batcher_healthy"]
+        assert stats["hbm"]["bytes_in_use"] > 0
+        assert stats["batcher"]["jobs"] == 3 and stats["batcher"]["failures"] == 0
+    finally:
+        te.reset_engine()
+        te._engine_config = old

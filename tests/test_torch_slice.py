@@ -80,6 +80,23 @@ def _open_gates(tree, seed=5):
     return out
 
 
+def _code_of(path: Path) -> str:
+    """A module's statements with docstrings and ``description=`` texts
+    blanked and the port's package name folded onto the original's."""
+    import ast
+
+    tree = ast.parse(path.read_text().replace("vietvoice_tts_tpu_torch", "vietvoice_tts_tpu"))
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant) \
+                    and isinstance(body[0].value.value, str):
+                body[0].value.value = ""
+        if isinstance(node, ast.keyword) and node.arg == "description":
+            node.value = ast.Constant("")
+    return ast.dump(tree)
+
+
 @pytest.fixture(scope="module")
 def pack_tree(tiny_pack_dir):
     path = Path(tiny_pack_dir) / "vietvoice-tpu-v1" / "params.msgpack"
@@ -349,6 +366,83 @@ class TestHostCopies:
         timer.reset()
         assert timer.report() == {}
         assert tlogging.get_logger("x").name == "vietvoice_tts_tpu_torch.x"
+
+    def test_wav_stream_header(self):
+        for rate in (24000, 16000, 44100):
+            assert twavio.wav_stream_header(rate) == jwavio.wav_stream_header(rate)
+        header = twavio.wav_stream_header(24000)
+        assert len(header) == 44 and header[:4] == b"RIFF" and header[4:8] == b"\xff" * 4
+
+    @pytest.mark.parametrize("max_batch", [1, 2, 3, 5, 8, 12, 16, 24, 33])
+    def test_batch_grid_and_pad_batch_size(self, max_batch):
+        assert tconfig.batch_grid(max_batch) == jconfig.batch_grid(max_batch)
+        for b in range(1, max_batch + 3):
+            assert tconfig.pad_batch_size(b, max_batch) == jconfig.pad_batch_size(b, max_batch)
+        ours = tconfig.ModelConfig(device="cpu", max_batch_size=max_batch)
+        assert ours.batch_grid() == jconfig.ModelConfig(max_batch_size=max_batch).batch_grid()
+
+    @pytest.mark.parametrize(
+        "name",
+        ["reference_samples.py", "api/asgi.py", "api/testing.py", "api/schemas.py"],
+    )
+    def test_copied_modules_differ_in_texts_only(self, name):
+        """Apart from docstrings, comments, strings that describe and the
+        package's name, a copied module is its original, statement for
+        statement."""
+        assert _code_of(PACKAGE / name) == _code_of(REPO / "vietvoice_tts_tpu" / name)
+
+    def test_settings_copy_adds_two_variables(self, monkeypatch):
+        from vietvoice_tts_tpu.api import settings as jsettings
+        from vietvoice_tts_tpu_torch.api import settings as tsettings
+
+        for env in ({}, {"VIETVOICE_ALLOW_SYNTHETIC": "1", "WARMUP_ON_START": "true",
+                         "FILE_LIFESPAN_SECONDS": "7", "TMP_DIR_PATH": "/tmp/vv-x"}):
+            for k in ("VIETVOICE_ALLOW_SYNTHETIC", "WARMUP_ON_START", "FILE_LIFESPAN_SECONDS",
+                      "TMP_DIR_PATH", "VIETVOICE_DEVICE", "VIETVOICE_MICRO_BATCHING"):
+                monkeypatch.delenv(k, raising=False)
+            for k, v in env.items():
+                monkeypatch.setenv(k, v)
+            ours, ref = vars(tsettings.Settings()), vars(jsettings.Settings())
+            assert set(ours) - set(ref) == {"DEVICE", "MICRO_BATCHING"}
+            assert all(ours[k] == ref[k] for k in ref)
+
+    def test_reference_sample_catalogue(self, monkeypatch, tmp_path):
+        from vietvoice_tts_tpu import reference_samples as jrs
+        from vietvoice_tts_tpu_torch import reference_samples as trs
+
+        monkeypatch.setenv("VIETVOICE_TPU_CACHE", str(tmp_path))
+        monkeypatch.delenv("VIETVOICE_SAMPLES_CSV", raising=False)
+        ours, ref = trs.load_reference_samples(), jrs.load_reference_samples()
+        assert len(ours) >= 238
+        assert [dataclasses.asdict(s) for s in ours] == [dataclasses.asdict(s) for s in ref]
+        for filters in ({}, {"gender": "female"}, {"area": "southern", "emotion": "happy"},
+                        {"group": "news", "gender": "male"}, {"gender": "robot"}):
+            a = [s.filename for s in trs.filter_samples(ours, **filters)]
+            assert a == [s.filename for s in jrs.filter_samples(ref, **filters)]
+        assert trs.catalog_audio_bases() == jrs.catalog_audio_bases()
+        assert trs.get_sample_path(ours[0]) == jrs.get_sample_path(ref[0])
+        assert ours[3].tags() == ref[3].tags()
+
+    def test_play_sample_degrades_without_a_player(self, monkeypatch, tmp_path, capsys):
+        from vietvoice_tts_tpu_torch import reference_samples as trs
+
+        monkeypatch.setenv("VIETVOICE_TPU_CACHE", str(tmp_path))
+        sample = trs.ReferenceSample("clip.wav", "female", "news", "northern", "neutral", "câu")
+        monkeypatch.setattr(trs.shutil, "which", lambda name: None)
+        trs.play_sample(sample)  # no player on the PATH: names the file, raises nothing
+        assert "clip.wav" in capsys.readouterr().out
+
+    def test_profiling_hooks_on_the_cpu(self, tmp_path, caplog):
+        from vietvoice_tts_tpu_torch.utils import profiling
+
+        assert profiling.device_memory_stats("cpu") == {}
+        if not torch.cuda.is_available():
+            assert profiling.device_memory_stats() == {}
+        with profiling.trace(str(tmp_path / "trace")):
+            with profiling.annotate("stage"):
+                torch.ones(4).sum()
+        assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+        profiling.log_memory("after")  # nothing to report without a card: no error
 
 
 class TestConfig:

@@ -13,7 +13,7 @@ from .config import (
     ModelConfig,
     TTSConfig,
 )
-from .client import TTSApi
+from .client import TTSApi, synthesize, synthesize_to_bytes
 from .deterministic import freeze_all_seeds, setup_deterministic_tts
 from .pipeline.engine import TTSEngine
 
@@ -24,6 +24,8 @@ __all__ = [
     "TTSConfig",
     "TTSEngine",
     "TTSApi",
+    "synthesize",
+    "synthesize_to_bytes",
     "freeze_all_seeds",
     "setup_deterministic_tts",
     "MODEL_GENDER",

@@ -2,8 +2,9 @@
 
 Mirrors the reference ``TTSApi``: lazy engine, context manager,
 ``synthesize`` / ``synthesize_streaming`` / ``synthesize_to_file`` /
-``synthesize_to_bytes`` / ``validate_configuration``; WAV bytes are encoded
-in memory.
+``synthesize_to_bytes`` / ``validate_configuration``, plus the module-level
+convenience functions ``synthesize`` and ``synthesize_to_bytes``; WAV bytes
+are encoded in memory.
 """
 
 from __future__ import annotations
@@ -159,3 +160,55 @@ class TTSApi:
         if self._engine:
             self._engine.cleanup()
             self._engine = None
+
+
+def synthesize(
+    text: str,
+    output_path: str,
+    gender: Optional[str] = None,
+    group: Optional[str] = None,
+    area: Optional[str] = None,
+    emotion: Optional[str] = None,
+    sample_iteration: Optional[int] = None,
+    reference_audio: Optional[str] = None,
+    reference_text: Optional[str] = None,
+    config: Optional[ModelConfig] = None,
+) -> float:
+    """Convenience: synthesize to a WAV file → generation time (s)."""
+    with TTSApi(config) as api:
+        return api.synthesize_to_file(
+            text=text,
+            output_path=output_path,
+            gender=gender,
+            group=group,
+            area=area,
+            emotion=emotion,
+            sample_iteration=sample_iteration,
+            reference_audio=reference_audio,
+            reference_text=reference_text,
+        )
+
+
+def synthesize_to_bytes(
+    text: str,
+    gender: Optional[str] = None,
+    group: Optional[str] = None,
+    area: Optional[str] = None,
+    emotion: Optional[str] = None,
+    sample_iteration: Optional[int] = None,
+    reference_audio: Optional[str] = None,
+    reference_text: Optional[str] = None,
+    config: Optional[ModelConfig] = None,
+) -> Tuple[bytes, float]:
+    """Convenience: synthesize → (WAV bytes, generation time)."""
+    with TTSApi(config) as api:
+        return api.synthesize_to_bytes(
+            text=text,
+            gender=gender,
+            group=group,
+            area=area,
+            emotion=emotion,
+            sample_iteration=sample_iteration,
+            reference_audio=reference_audio,
+            reference_text=reference_text,
+        )

@@ -61,7 +61,19 @@ class MelFrontend(nn.Module):
 
     ``T`` must equal ``frames * hop_length`` (callers pad the waveform to the
     frame bucket). Centred frames use reflect padding of ``n_fft // 2``.
+
+    The three matmuls run as batched products over tiles of ``FRAME_TILE``
+    frames, every tile against the same basis. One product over all
+    ``B · frames`` rows would let the matmul library block its sums by the
+    row count, and a frame's bits would then depend on how many other frames
+    came with it. Tiled (two tiles or more, which every frame bucket is), a
+    frame's mel is the same bits whether it is computed inside a padded
+    batch or, once per voice, for the
+    voice-conditioning cache (``EngineCore._cond_handles``; array-equal on
+    the CPU, ``tests/test_torch_cond_cache.py``).
     """
+
+    FRAME_TILE = 8
 
     def __init__(
         self,
@@ -90,8 +102,14 @@ class MelFrontend(nn.Module):
         pad = self.n_fft // 2
         x = F.pad(waveform.float()[:, None], (pad, pad), mode="reflect")[:, 0]
         frames = x.unfold(1, self.win_length, self.hop_length)[:, :n_frames]
-        re = frames @ self.cos_basis
-        im = frames @ self.sin_basis
+        extra = -n_frames % self.FRAME_TILE
+        if extra:
+            frames = F.pad(frames, (0, 0, 0, extra))
+        tiles = frames.reshape(-1, self.FRAME_TILE, self.win_length)
+        g = tiles.shape[0]
+        re = torch.bmm(tiles, self.cos_basis.expand(g, -1, -1))
+        im = torch.bmm(tiles, self.sin_basis.expand(g, -1, -1))
         mag = torch.sqrt(re * re + im * im + 1e-12)
-        mel = mag @ self.mel_fb
+        mel = torch.bmm(mag, self.mel_fb.expand(g, -1, -1))
+        mel = mel.reshape(waveform.shape[0], -1, self.n_mels)[:, :n_frames]
         return torch.log(torch.clamp(mel, min=1e-5))

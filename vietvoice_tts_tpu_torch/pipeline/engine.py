@@ -5,9 +5,11 @@ constructor/context-manager/cleanup, ``synthesize(...)`` returning
 ``(int16 waveform, generation_time)``, and the same duration estimation and
 chunking policy (speaking rate from the reference clip, 20 s chunk cap, 1 s
 safety margin, recursive re-split). Chunks are padded into frame buckets and
-run through :class:`EngineCore` in direct mode: as batches for
-``synthesize``, as single rows, one after the other, for
-``synthesize_streaming`` (the micro-batcher and meshes are not ported yet).
+run through :class:`EngineCore`. In direct mode they go as batches for
+``synthesize`` and as single rows, one after the other, for
+``synthesize_streaming``; with ``enable_micro_batching`` every chunk is a job
+of the shared :class:`~..serving.batcher.MicroBatcher`, which batches the
+chunks of concurrent requests together (meshes are not ported yet).
 """
 
 from __future__ import annotations
@@ -62,10 +64,41 @@ class TTSEngine:
         # Host-side cache of decoded reference audio (int16 @ sample_rate),
         # keyed by path or content hash.
         self.sample_cache: dict = {}
+        # Optional shared micro-batching dispatcher (serving mode). When set,
+        # chunks from concurrent requests share padded device batches.
+        self.batcher = None
+
+    def enable_micro_batching(self, max_batch=None, max_wait_ms: float = 5.0,
+                              pipeline_depth: int = 1):
+        """Attach a continuous micro-batcher so concurrent requests share
+        device batches (see serving/batcher.py). Returns the batcher."""
+        from ..serving.batcher import MicroBatcher
+
+        if self.batcher is None:
+            self.batcher = MicroBatcher(
+                self.engine_core, max_batch=max_batch, max_wait_ms=max_wait_ms,
+                pipeline_depth=pipeline_depth,
+            )
+        return self.batcher
+
+    def warmup(self, batches=None, buckets=None) -> None:
+        """Run the serving shape grid once, at deploy time, so that no
+        request pays a first use (see ``EngineCore.warmup`` for what that
+        is in eager PyTorch: kernel builds, library handles, buffers).
+
+        The default batch grid is exactly the set of padded row counts the
+        micro-batcher dispatches (``config.batch_grid``); the default
+        buckets are all of ``config.frame_buckets``."""
+        self.engine_core.warmup(
+            batches=batches or self.config.batch_grid(), buckets=buckets
+        )
 
     # -- Lifecycle -----------------------------------------------------------
 
     def cleanup(self) -> None:
+        if self.batcher is not None:
+            self.batcher.shutdown()
+            self.batcher = None
         if self.model_session_manager:
             self.model_session_manager.cleanup()
 
@@ -264,10 +297,40 @@ class TTSEngine:
         hop = self.config.hop_length
         return row[plan.ref_len * hop : plan.total_len * hop]
 
+    def _submit_chunks(self, plans: List[ChunkPlan], ref_audio_f32: np.ndarray):
+        """Hand every chunk to the shared micro-batcher → [(plan, job)]."""
+        from ..serving.batcher import ChunkJob
+
+        jobs = []
+        for p in plans:
+            wave, ids = self._chunk_row(p, ref_audio_f32)
+            job = ChunkJob(
+                bucket=p.bucket,
+                wave=wave,
+                ref_len=p.ref_len,
+                total_len=p.total_len,
+                text_ids=ids,
+                seed=p.index,
+            )
+            self.batcher.submit(job)
+            jobs.append((p, job))
+        return jobs
+
+    def _run_chunks_batched(
+        self, plans: List[ChunkPlan], ref_audio_f32: np.ndarray
+    ) -> List[np.ndarray]:
+        """Route chunks through the shared micro-batcher (serving mode)."""
+        return [
+            self._slice_output(p, j.future.result())
+            for p, j in self._submit_chunks(plans, ref_audio_f32)
+        ]
+
     def _run_chunks(
         self, plans: List[ChunkPlan], ref_audio_f32: np.ndarray
     ) -> List[np.ndarray]:
         """Execute all chunk plans, grouped by frame bucket, batched."""
+        if self.batcher is not None:
+            return self._run_chunks_batched(plans, ref_audio_f32)
         hop = self.config.hop_length
         results: dict[int, np.ndarray] = {}
 
@@ -301,8 +364,11 @@ class TTSEngine:
     def _iter_chunk_waves(self, plans: List[ChunkPlan], ref_audio_f32: np.ndarray):
         """Yield each chunk's trimmed int16 wave in order, as it completes.
 
-        Single-row dispatches, one at a time: chunk k is handed to the
-        caller before chunk k+1 is dispatched. The JAX engine keeps two in
+        Batcher mode submits everything up front: the batcher's dispatcher
+        thread queues the batches and its fetcher resolves each at its
+        event, so chunks of one bucket that ride one batch come together.
+        Direct mode runs single-row dispatches, one at a time: chunk k is
+        handed to the caller before chunk k+1 is dispatched. The JAX engine keeps two in
         flight, where a dispatch is one asynchronous call. Here it is some
         17,000 kernel launches and CUDA's launch queue holds about a
         thousand, so the host could not queue chunk k+1 behind a running
@@ -310,6 +376,10 @@ class TTSEngine:
         done, and chunk k would reach the caller a whole chunk late (measured
         on an H100, ``PERF.md``). The device waits only the milliseconds
         between a fetch and the next dispatch's first kernels."""
+        if self.batcher is not None:
+            for p, j in self._submit_chunks(plans, ref_audio_f32):
+                yield self._slice_output(p, j.future.result())
+            return
         for p in plans:
             wave, ids = self._chunk_row(p, ref_audio_f32)
             fetch = self.engine_core.synthesize_batch_async(

@@ -1,7 +1,6 @@
 """Dependency-free WAV read/write.
 
-A copy of ``vietvoice_tts_tpu/utils/wavio.py`` (without its streaming
-header, which waits for streaming synthesis): RIFF/WAVE(+WAVEX) parsing and
+A copy of ``vietvoice_tts_tpu/utils/wavio.py``: RIFF/WAVE(+WAVEX) parsing and
 writing on top of ``struct``+numpy, shelling out to ``ffmpeg`` only when a
 non-WAV container is encountered *and* the binary exists.
 """
@@ -140,6 +139,29 @@ def wav_bytes(samples: np.ndarray, sample_rate: int) -> bytes:
     buf.write(b"data")
     buf.write(struct.pack("<I", len(data)))
     buf.write(data)
+    return buf.getvalue()
+
+
+def wav_stream_header(sample_rate: int) -> bytes:
+    """44-byte PCM WAV header for a stream of unknown length.
+
+    RIFF/data sizes are 0xFFFFFFFF — the conventional open-ended marker that
+    players and browsers treat as "read until the connection closes". Append
+    raw little-endian int16 PCM after it (chunked HTTP transfer)."""
+    channels = 1
+    byte_rate = sample_rate * channels * 2
+    buf = io.BytesIO()
+    buf.write(b"RIFF")
+    buf.write(struct.pack("<I", 0xFFFFFFFF))
+    buf.write(b"WAVE")
+    buf.write(b"fmt ")
+    buf.write(
+        struct.pack(
+            "<IHHIIHH", 16, WAVE_FORMAT_PCM, channels, sample_rate, byte_rate, 2, 16
+        )
+    )
+    buf.write(b"data")
+    buf.write(struct.pack("<I", 0xFFFFFFFF))
     return buf.getvalue()
 
 
