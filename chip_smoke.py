@@ -62,6 +62,23 @@ check raises):
    gathered at once return four WAVs; ``/synthesize/stream`` yields a header
    and ≥ 2 pieces for the long text; ``/stats`` holds device memory and the
    batcher's numbers; ``/metrics`` parses.
+9. Training at the default model's full width (8 heads × 128, bfloat16
+   compute, float32 master weights) on a copy of the seeded pack under
+   ``build/chip_smoke/train/`` (``train()`` exports into the pack it trains):
+   (a) ``train()`` in process, batch 8 for 8 steps with checkpoints every 4,
+   then resumed to step 12 — finite losses, the right final steps, **no**
+   kernel launch (neither kernel has a backward), a moved ``blocks.*.ada``;
+   after each run the latest checkpoint, loaded into a DiT and optimizer
+   that ``init_train_state`` builds on the card, holds float32 weights and
+   Adam moments on the card at the run's step, and the ``dit`` tree the run
+   exported from its trained module is bit-equal to ``to_jax_tree`` of it;
+   with the step time (data loading excluded), tokens/s,
+   6·P·tokens against the bf16 peak and peak memory; (b) one float32 step
+   at dim 1024, depth 2, card against CPU with TF32 off (loss within 1e-5
+   relative, each gradient leaf within 1e-4 of its max-abs); (c) ``TTSApi``
+   on the trained pack serves a short request (682 fused-kernel launches);
+   (d) ``python -m vietvoice_tts_tpu_torch.training`` as a subprocess with no
+   ``--device``: exit code 0, ``cuda`` and a finite final loss.
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``. Weights are random, made from a seed, and
@@ -88,6 +105,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
+TRAIN_WORK = WORK / "train"  # a copy of the seeded pack, trained and served by phase 9
 
 # Phase-3 shapes (B, N, H, D): B = 2 × batch for CFG; N from the frame
 # buckets; 8×128 is the default model, 16×64 a converted F5 model; 448 is
@@ -991,6 +1009,237 @@ def phase_rest(cfg, smi: str) -> int:
     return got["fused_rope"]
 
 
+def _train_run(label, model_cfg, train_cfg, run, smi) -> dict:
+    """One ``train()`` in process with no kernel launch allowed; returns its
+    summary with the run's peak memory."""
+    import torch
+
+    from vietvoice_tts_tpu_torch.training.loop import train
+
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    summary = train(model_cfg, train_cfg, run)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if _launches() != {"fused_rope": 0, "flash": 0}:
+        raise AssertionError(f"{label}: training launched kernels {_launches()}")
+    losses = summary["losses"]
+    if summary["final_step"] != run.steps or not losses or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: {summary}")
+    log(f"[9] {label}: steps to {summary['final_step']} in {wall:.1f} s wall (pack load, "
+        f"data, checkpoints included); losses {[round(x, 3) for x in losses]}; peak "
+        f"memory {peak / 2**30:.2f} GiB; kernel launches 0 [{smi}]")
+    summary["peak_bytes"] = peak
+    return summary
+
+
+def _check_trained(label, cfg, train_cfg, ckpt_dir, pack, init_tree, step) -> int:
+    """Load the latest checkpoint into a DiT and optimizer that
+    ``init_train_state`` builds on the card, as a resumed run does, and hold
+    it against what ``train()`` left: the checkpoint is at ``step``, its
+    weights and Adam moments are float32 and land on cuda, every moment has
+    made ``step`` updates, and the ``dit`` tree ``train()`` exported into
+    ``pack`` is bit-equal to ``to_jax_tree`` of the restored module (the
+    export is of the module in memory, so the checkpoint holds the trained
+    weights). Returns the parameter count."""
+    import torch
+
+    from vietvoice_tts_tpu_torch.models.dit import DiTConfig
+    from vietvoice_tts_tpu_torch.models.params import to_jax_tree
+    from vietvoice_tts_tpu_torch.runtime.serialization import load_params
+    from vietvoice_tts_tpu_torch.training import train as ttrain
+    from vietvoice_tts_tpu_torch.training.checkpoint import CheckpointManager
+
+    model_state, opt_state, saved_step = CheckpointManager(ckpt_dir).restore()
+    if saved_step != step:
+        raise AssertionError(f"{label}: latest checkpoint is step {saved_step}, want {step}")
+    if not all(v.dtype == torch.float32 for v in model_state.values()):
+        raise AssertionError(f"{label}: checkpointed weights are not float32")
+    vocab = json.loads((pack / "model_meta.json").read_text())["vocab_size"]
+    dcfg = DiTConfig(dim=cfg.dit_dim, depth=cfg.dit_depth, heads=cfg.dit_heads,
+                     ff_mult=cfg.dit_ff_mult, n_mels=cfg.n_mels, text_dim=cfg.text_dim,
+                     text_conv_layers=cfg.text_conv_layers, vocab_size=vocab)
+    dit, opt = ttrain.init_train_state(init_tree, dcfg, train_cfg, "cuda")
+    dit.load_state_dict(model_state)
+    opt.load_state_dict(opt_state)
+    params = list(dit.parameters())
+    if not all(p.dtype == torch.float32 and p.is_cuda for p in params):
+        raise AssertionError(f"{label}: parameters are not float32 on cuda")
+    states = [opt.state[p] for p in params]
+    moments = [s[k] for s in states for k in ("exp_avg", "exp_avg_sq")]
+    if len(moments) != 2 * len(params) or not all(
+            m.dtype == torch.float32 and m.is_cuda for m in moments):
+        raise AssertionError(f"{label}: Adam moments are not float32 on cuda")
+    if ttrain.update_count(opt) != step or any(int(s["step"]) != step for s in states):
+        raise AssertionError(f"{label}: the optimizer state has not made {step} updates")
+    exported = load_params(pack / "params.msgpack")["dit"]
+    for path, ref in _leaves(to_jax_tree(dit)):
+        got = _leaf(exported, path)
+        if got.dtype != ref.dtype or not np.array_equal(got, ref):
+            raise AssertionError(f"{label}: exported {path} differs from the checkpoint's")
+    return sum(p.numel() for p in params)
+
+
+def _f32_card_against_cpu(vocab_size: int, smi: str) -> None:
+    """One f32 train step's loss and gradients, card against CPU, at dim
+    1024, depth 2, batch 2, bucket 256, TF32 off, gates opened."""
+    import torch
+
+    from vietvoice_tts_tpu_torch.models.dit import DiTConfig, init_dit_params
+    from vietvoice_tts_tpu_torch.models.params import to_jax_tree
+    from vietvoice_tts_tpu_torch.runtime.engine_core import _true_float32
+    from vietvoice_tts_tpu_torch.training import train as ttrain
+
+    dcfg = DiTConfig(depth=2, vocab_size=vocab_size)
+    tree = _perturbed_gates({"dit": init_dit_params(np.random.default_rng(9), dcfg)}, seed=9)["dit"]
+    tcfg = ttrain.TrainConfig(compute_dtype="float32")
+    rng = np.random.default_rng(10)
+    b, n = 2, 256
+    batch = (rng.standard_normal((b, n, dcfg.n_mels)).astype(np.float32) - 5.0,
+             rng.integers(-1, vocab_size, (b, n)).astype(np.int32),
+             np.array([n, 180], np.int32))
+    draws = ttrain.draw(torch.Generator().manual_seed(11), b, n, dcfg.n_mels, tcfg)
+    def loss_and_grads(device):
+        dit, _ = ttrain.init_train_state(tree, dcfg, tcfg, device)
+        with _true_float32():
+            loss = ttrain.flow_matching_loss(
+                dit, *ttrain.as_tensors(*batch, device), draws.to(device))
+            loss.backward()
+        return loss.item(), to_jax_tree({k: p.grad for k, p in dit.named_parameters()})
+
+    t0 = time.perf_counter()
+    (loss_gpu, g_gpu), (loss_cpu, g_cpu) = loss_and_grads("cuda"), loss_and_grads("cpu")
+    wall = time.perf_counter() - t0
+    rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    worst, zeros = 0.0, 0
+    for path, ref in _leaves(g_cpu):
+        got = _leaf(g_gpu, path)
+        scale = float(np.abs(ref).max())
+        if scale == 0.0:
+            zeros += 1
+            if np.abs(got).max() > 1e-7:
+                raise AssertionError(f"(b) {path}: 0 on the CPU, {np.abs(got).max():.3e} on the card")
+            continue
+        worst = max(worst, float(np.abs(got - ref).max()) / scale)
+    log(f"[9] (b) f32 train step, card against CPU (dim 1024, depth 2, batch 2, bucket 256, "
+        f"TF32 off): loss {loss_gpu:.6f} vs {loss_cpu:.6f}, rel {rel:.3e} (tol 1e-5); worst "
+        f"gradient leaf {worst:.3e} of its max-abs (tol 1e-4); {zeros} leaves exactly 0 on "
+        f"the CPU; {wall:.1f} s wall for both [{smi}]")
+    if not (rel <= 1e-5 and worst <= 1e-4):
+        raise AssertionError("(b) card and CPU disagree beyond tolerance")
+
+
+def _leaves(tree, prefix=()):
+    """(path, array) for every leaf of a pack tree."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        if isinstance(v, (dict, list)):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def _leaf(tree, path):
+    for k in path:
+        tree = tree[k]
+    return np.asarray(tree)
+
+
+def phase_training(cfg, smi: str) -> int:
+    """The trainer at full width on a copy of the seeded pack; returns the
+    fused kernel's launches of the request served from the trained pack."""
+    import shutil
+
+    import torch
+
+    from vietvoice_tts_tpu_torch import TTSApi
+    from vietvoice_tts_tpu_torch.runtime.serialization import load_params
+    from vietvoice_tts_tpu_torch.training.loop import TrainRunConfig
+    from vietvoice_tts_tpu_torch.training.train import TrainConfig
+
+    # train() exports into the pack it trains from: train a copy.
+    shutil.rmtree(TRAIN_WORK, ignore_errors=True)
+    src = Path(cfg.model_path)
+    shutil.copytree(src, TRAIN_WORK / "models" / src.name)
+    tcfg = dataclasses.replace(cfg, model_cache_dir=str(TRAIN_WORK / "models"))
+    pack = Path(tcfg.model_path)
+    ckpt_dir = TRAIN_WORK / "ckpt"
+    train_cfg = TrainConfig(compute_dtype="bfloat16", warmup_steps=2)
+    before = load_params(pack / "params.msgpack")["dit"]
+
+    # (a) 8 steps, then resumed to 12.
+    def run(steps):
+        return TrainRunConfig(steps=steps, batch_size=8, checkpoint_dir=str(ckpt_dir),
+                              checkpoint_every=4, log_every=4)
+
+    first = _train_run("(a) bf16 compute, f32 masters, batch 8", tcfg, train_cfg, run(8), smi)
+    n_params = _check_trained("(a)", cfg, train_cfg, ckpt_dir, pack, before, 8)
+    trained = load_params(pack / "params.msgpack")["dit"]
+    if not np.any(trained["blocks"]["ada"]["w"] != before["blocks"]["ada"]["w"]):
+        raise AssertionError("(a) no blocks.*.ada leaf moved")
+    bucket = cfg.frame_bucket_for(int(2.0 * cfg.sample_rate) // cfg.hop_length)
+    tokens = 8 * bucket
+    step_s = statistics.median(first["step_seconds"][2:])
+    flops = 6.0 * n_params * tokens
+    log(f"[9] (a) step time {step_s * 1e3:.1f} ms (median of steps 3-8; a step of the "
+        f"42-clip catalogue's last, 2-row batch included; data loading excluded), "
+        f"{tokens / step_s:.0f} tokens/s "
+        f"(8 × {bucket} frames a step); 6·P·tokens = {flops:.3e} with P = {n_params:,}: "
+        f"{flops / step_s / 1e12:.1f} TFLOP/s, {100 * flops / step_s / PEAK_FLOPS['bfloat16']:.1f}% "
+        f"of the 989 TFLOP/s bf16 peak; peak memory {first['peak_bytes'] / 2**30:.2f} GiB; "
+        f"checkpoint at step 8 restores to f32 weights and moments on cuda, bit-equal to "
+        f"the exported dit tree [{smi}]")
+    torch.cuda.empty_cache()
+
+    second = _train_run("(a) resumed from step 8", tcfg, train_cfg, run(12), smi)
+    if len(second["losses"]) != 4:
+        raise AssertionError(f"(a) resumed run took {len(second['losses'])} steps, want 4")
+    _check_trained("(a) resumed", cfg, train_cfg, ckpt_dir, pack, before, 12)
+    log("[9] (a) resumed to step 12: exported params.msgpack dit tree bit-equal to "
+        "to_jax_tree of the step-12 checkpoint")
+    torch.cuda.empty_cache()
+
+    # (b) f32, card against CPU.
+    _f32_card_against_cpu(json.loads((pack / "model_meta.json").read_text())["vocab_size"], smi)
+
+    # (c) The trained pack served on the card.
+    t0 = time.perf_counter()
+    api = TTSApi(tcfg)
+    n_batches, _ = _chunk_batches(api.engine, SHORT_TEXT)
+    per_batch = cfg.dit_depth * (cfg.nfe_step - 1)
+    _reset_launches()
+    wave, _ = api.synthesize(SHORT_TEXT)
+    got = _launches()
+    api.cleanup()
+    _check_wave("(c) trained pack", wave)
+    if got != {"fused_rope": n_batches * per_batch, "flash": 0}:
+        raise AssertionError(f"(c) serving the trained pack launched {got}")
+    log(f"[9] (c) TTSApi on the trained pack: {wave.size / cfg.sample_rate:.2f} s of int16, "
+        f"peak |sample| {int(np.abs(wave.astype(np.int32)).max())}, {got['fused_rope']} "
+        f"fused_rope launches; {time.perf_counter() - t0:.1f} s wall with the pack's load "
+        f"[{smi}]")
+
+    # (d) The entry point as a user starts it: no --device, so on the card.
+    cmd = [sys.executable, "-m", "vietvoice_tts_tpu_torch.training", "--steps", "2",
+           "--batch-size", "8", "--model-cache-dir", str(TRAIN_WORK / "models"),
+           "--checkpoint-dir", str(TRAIN_WORK / "cli_ckpt")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
+                          env={**os.environ, "VIETVOICE_LOG_LEVEL": "WARNING"})
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"training CLI exited {proc.returncode}:\n{proc.stderr[-2000:]}")
+    final = re.search(r"'final_step': (\d+), 'final_loss': ([-\d.e+]+)", proc.stdout)
+    if not (re.search(r"^Device: cuda", proc.stdout, re.M) and final and final.group(1) == "2"
+            and np.isfinite(float(final.group(2)))):
+        raise AssertionError(f"training CLI printed:\n{proc.stdout[-2000:]}")
+    log(f"[9] (d) python -m vietvoice_tts_tpu_torch.training --steps 2 --batch-size 8: exit 0 "
+        f"in {wall:.1f} s wall, device cuda, f32, final loss {float(final.group(2)):.4f} [{smi}]")
+    shutil.rmtree(TRAIN_WORK, ignore_errors=True)  # ~20 GB of checkpoints
+    return got["fused_rope"]
+
+
 def main() -> int:
     try:
         import torch
@@ -1030,8 +1279,11 @@ def main() -> int:
     phase_cli(cfg, smi)
     rest_launches = phase_rest(cfg, smi)
     torch.cuda.synchronize()
+    trained_launches = phase_training(cfg, smi)
+    torch.cuda.synchronize()
     launches = {
-        "fused_rope": launches["fused_rope"] + batched["fused_rope"] + rest_launches,
+        "fused_rope": (launches["fused_rope"] + batched["fused_rope"] + rest_launches
+                       + trained_launches),
         "flash": launches["flash"] + batched["flash"],
     }
     fused_record["launches"] = launches["fused_rope"]

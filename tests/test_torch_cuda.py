@@ -160,6 +160,35 @@ def test_cuda_wrapper_raises_on_mixed_devices(cuda_device):
     assert fra.launches == before
 
 
+def test_cuda_kernels_refuse_autograd_and_run_under_no_grad(cuda_device):
+    """Neither kernel has a backward: with grad enabled and an input that
+    requires grad, both wrappers raise rather than return a result with no
+    ``grad_fn`` (a trainer would silently lose attention's gradient); under
+    ``no_grad`` and ``inference_mode`` they launch. CPU tensors keep
+    running the plain versions, which autograd differentiates."""
+    qkv, cos, sin, mask = _attention_inputs(1, 64, 2, 64, [64], cuda_device, torch.bfloat16)
+    q = qkv[..., :128].reshape(1, 64, 2, 64).transpose(1, 2).contiguous()
+    qkv.requires_grad_(True)
+    q.requires_grad_(True)
+    before = fra.launches, fa.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        fra.fused_qkv_rope_attention(qkv, cos, sin, mask, 2)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa.flash_attention(q, q, q, mask)
+    assert (fra.launches, fa.launches) == before
+    for mode in (torch.no_grad, torch.inference_mode):
+        with mode():
+            out = fra.fused_qkv_rope_attention(qkv, cos, sin, mask, 2)
+            out2 = fa.flash_attention(q, q, q, mask)
+        assert out.grad_fn is None and out2.grad_fn is None
+    torch.cuda.synchronize()
+    assert (fra.launches, fa.launches) == (before[0] + 2, before[1] + 2)
+    cpu_qkv = qkv.detach().float().cpu().requires_grad_(True)
+    out = fra.fused_qkv_rope_attention(cpu_qkv, cos.cpu(), sin.cpu(), mask.cpu(), 2)
+    out.float().sum().backward()
+    assert cpu_qkv.grad is not None and fra.launches == before[0] + 2
+
+
 def test_cuda_wrapper_and_dit_raise_on_unsupported_head_dim(cuda_device):
     """head_dim 96 is not the fused kernel's: its wrapper raises on the card.
     head_dim 48 has no kernel at all: the flash_attention wrapper raises, and

@@ -545,7 +545,8 @@ def test_package_never_imports_jax():
             words = line.strip().split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
                 root = words[1].split(".")[0]
-                assert root not in {"jax", "flax", "msgpack", "vietvoice_tts_tpu"}, (
+                assert root not in {"jax", "flax", "msgpack", "optax", "orbax",
+                                    "vietvoice_tts_tpu"}, (
                     f"{path}: {line}"
                 )
 

@@ -291,6 +291,21 @@ class DiT(nn.Module):
 
     # -- Forward -----------------------------------------------------------
 
+    def forward(
+        self,
+        x: torch.Tensor,  # [B, N, n_mels] noisy latent
+        cond: torch.Tensor,  # [B, N, n_mels] masked-infill conditioning mel
+        text_ids: torch.Tensor,  # [B, N] int, -1 padded
+        t: torch.Tensor,  # [B] flow time in [0, 1]
+        mask: torch.Tensor,  # [B, N] bool, True = valid frame
+    ) -> torch.Tensor:
+        """Full forward, text embedding included (the JAX ``dit_forward``):
+        the velocity field [B, N, n_mels] float32. The trainer's entry; it
+        is differentiable when the attention route is (``use_kernels=False``
+        or CPU tensors: the CUDA kernels have no backward and refuse
+        inputs that require grad)."""
+        return self.forward_embedded(x, cond, self.text_embed(text_ids), t, mask)
+
     def _attend(self, n: int):
         """The attention route for this forward: packed qkv [B, N, 3·H·D],
         rope tables, mask → [B, N, H·D]. Picked from the head shape alone;

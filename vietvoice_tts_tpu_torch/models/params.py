@@ -1,4 +1,4 @@
-"""Weight-pack pytree → module state dicts.
+"""Weight-pack pytree ↔ module state dicts.
 
 The pack stores the JAX package's pytree: dense weights ``[in, out]`` used
 as ``x @ w``, depthwise conv weights ``[k, 1, C]``, dense conv weights
@@ -10,6 +10,8 @@ applies the serving dtype policy of ``vietvoice_tts_tpu/runtime/
 engine_core.py:151-170``: leaves under a matmul key (``qkv``, ``attn_out``,
 ``ff1``, ``ff2``, ``input_proj``, ``pw1``, ``pw2``, ``conv_pos``, ``ada``,
 ``final_ada``) are stored in the compute dtype, the rest in float32.
+:func:`to_jax_tree` maps a DiT back to the pack's layout (the trainer's
+export).
 """
 
 from __future__ import annotations
@@ -113,3 +115,55 @@ def from_jax_tree(
     """``{'dit': …, 'vocoder': …}`` pytree (numpy leaves) → (DiT state dict,
     Vocoder state dict) on the CPU, in the serving dtype policy."""
     return dit_state(tree["dit"], compute_dtype), vocoder_state(tree["vocoder"], compute_dtype)
+
+
+def to_jax_tree(dit: torch.nn.Module) -> dict:
+    """The inverse of :func:`dit_state`: a DiT's weights (or its state dict)
+    → the pack's ``dit`` pytree, float32 numpy leaves — dense ``[in, out]``,
+    depthwise conv ``[k, 1, C]``, block weights stacked on a leading depth
+    axis. Widening a bfloat16 weight to float32 is exact, so
+    ``dit_state(to_jax_tree(m), dtype)`` gives back ``m``'s tensors bit for
+    bit. Export, checkpoint-to-pack and the gradient tests use it (on a
+    dict of ``.grad`` tensors too)."""
+    sd = dit.state_dict() if isinstance(dit, torch.nn.Module) else dit
+
+    def leaf(name: str) -> np.ndarray:
+        # An owned copy: the tensor may be a live parameter.
+        return sd[name].detach().to("cpu", torch.float32).numpy().copy()
+
+    def dense(name: str) -> dict:
+        return {"w": np.ascontiguousarray(leaf(f"{name}.weight").T), "b": leaf(f"{name}.bias")}
+
+    def dwconv(name: str) -> dict:
+        w = leaf(f"{name}.weight").transpose(2, 1, 0)
+        return {"w": np.ascontiguousarray(w), "b": leaf(f"{name}.bias")}
+
+    n_text = len({k.split(".")[1] for k in sd if k.startswith("text_blocks.")})
+    depth = len({k.split(".")[1] for k in sd if k.startswith("blocks.")})
+    layers = [
+        {key: dense(f"blocks.{i}.{key}") for key in ("ada", "qkv", "attn_out", "ff1", "ff2")}
+        for i in range(depth)
+    ]
+    blocks = {
+        key: {p: np.stack([layer[key][p] for layer in layers]) for p in ("w", "b")}
+        for key in layers[0]
+    }
+    return {
+        "text_embed": {
+            "table": leaf("text_table.weight"),
+            "blocks": [
+                {
+                    "dwconv": dwconv(f"text_blocks.{i}.dwconv"),
+                    "pw1": dense(f"text_blocks.{i}.pw1"),
+                    "pw2": dense(f"text_blocks.{i}.pw2"),
+                }
+                for i in range(n_text)
+            ],
+        },
+        "time_embed": {"mlp1": dense("time_mlp1"), "mlp2": dense("time_mlp2")},
+        "input_proj": dense("input_proj"),
+        "conv_pos": [dwconv("conv_pos_dw"), dense("conv_pos_pw")],
+        "blocks": blocks,
+        "final_ada": dense("final_ada"),
+        "final_proj": dense("final_proj"),
+    }

@@ -30,6 +30,7 @@ import functools
 import torch
 
 from ..attention import attention
+from . import refuse_autograd
 from .build import load_library
 
 KERNEL = "flash_attention"
@@ -87,14 +88,16 @@ def flash_attention(
     """Bidirectional multi-head attention → [B, H, N, D] in q's dtype.
 
     CUDA tensors launch the kernel, or raise on anything it does not take
-    (:func:`supports_shape`; unit stride along D); CPU tensors, which the
-    kernel cannot read, run the plain ``ops.attention.attention``. The
+    (:func:`supports_shape`; unit stride along D; inputs that require grad,
+    since the kernel has no backward); CPU tensors, which the kernel cannot
+    read, run the plain (differentiable) ``ops.attention.attention``. The
     kernel's result is a view of a ``[B, N, H, D]`` buffer, so
     ``out.transpose(1, 2).reshape(B, N, H·D)`` copies nothing."""
     global launches
     _check_inputs(q, k, v, mask)
     if q.device.type == "cpu":
         return attention(q, k, v, None if mask is None else mask.bool())
+    refuse_autograd(KERNEL, q, k, v)
     b, heads, n, d = q.shape
     if not supports_shape(heads, d, n):
         raise ValueError(

@@ -29,6 +29,7 @@ import torch
 
 from ..attention import attention
 from ..rope import apply_rope
+from . import refuse_autograd
 from .build import load_library
 
 KERNEL = "fused_rope_attention"
@@ -116,14 +117,16 @@ def fused_qkv_rope_attention(
     """Multi-head RoPE attention on packed QKV → [B, N, H·D].
 
     CUDA tensors launch the kernel, or raise on anything it does not take
-    (:func:`supports_shape`); CPU tensors, which the kernel cannot read, run
-    :func:`fused_qkv_rope_attention_reference`."""
+    (:func:`supports_shape`, and inputs that require grad: the kernel has no
+    backward); CPU tensors, which the kernel cannot read, run
+    :func:`fused_qkv_rope_attention_reference`, which is differentiable."""
     global launches
     d = _check_inputs(qkv, cos, sin, mask, heads)
     if qkv.device.type == "cpu":
         return fused_qkv_rope_attention_reference(
             qkv, cos, sin, None if mask is None else mask.bool(), heads
         )
+    refuse_autograd(KERNEL, qkv, cos, sin)
     b, n, _ = qkv.shape
     if not supports_shape(heads, d, n):
         raise ValueError(
