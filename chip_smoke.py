@@ -79,6 +79,31 @@ check raises):
    on the trained pack serves a short request (682 fused-kernel launches);
    (d) ``python -m vietvoice_tts_tpu_torch.training`` as a subprocess with no
    ``--device``: exit code 0, ``cuda`` and a finite final loss.
+10. Conversion day at the F5 widths (``models/f5_fixture.py:FixtureSpec``:
+    dim 1024, 16 heads × 64 — kernel 1's head shape — ff_mult 2, text 512 ×
+    4 conv layers, 100 mels, vocab 211, vocoder 512/1536/8), from a synthetic
+    F5-shaped ``model-bin.pt`` (three ONNX graphs; no real weights offline):
+    (a) the rehearsal cut to depth 2 and NFE 8 — the fixture, the port's
+    ``preflight_report`` (ok, kernel 1), ``convert_reference_tarball`` (no
+    unresolved leaf), the golden reference side through the numpy evaluator,
+    then on the card the golden torch side: float32 (TF32 off) mel MAE
+    < 1e-4 and allclose at 1e-2, bfloat16 max-abs ≤ 5e-2, exactly
+    depth × (NFE − 1) = 14 kernel-1 launches per solve and none of kernel 2,
+    the same pack with ``use_kernels=False`` within 1e-2 (f32) and 5e-2
+    (bf16) of the kernel's latent, and ``decode.onnx`` through the evaluator
+    against the port's vocoder in float32 within 1 LSB of int16; (b) the whole
+    depth (22 layers, ~336 M parameters) through the entry points: the
+    fixture, preflight and convert command lines as timed subprocesses, then
+    ``TTSApi`` on the converted pack, which is not synthetic and loads with
+    ``allow_synthetic_pack=False``, serves the short sentence in bfloat16
+    cold and warm with 682 kernel-1 launches per dispatched batch; (c) the
+    native cross-fade (``native/``, built with ``g++``) on a three-chunk text,
+    blocking and streamed: the join counter moves, every join within 1 LSB
+    of the numpy cross-fade of the same chunks, and their times side by side.
+
+Phases 2-4 and 10 (a) hold each kernel against its plain version; the main
+path whose launches the kernels' record counts is every serving request of
+phases 5-10 (counters set to 0 just before, read just after).
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``. Weights are random, made from a seed, and
@@ -93,6 +118,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -162,6 +188,16 @@ MEL_TOLERANCE = {"float32": (1e-2, 1e-3), "bfloat16": (5e-2, 1e-2)}
 # about four times that. (In float32 at small widths the largest difference
 # is 2, tests/test_torch_cuda.py.)
 STREAM_TOLERANCE = (64, 2.0)
+
+
+# Phase 10: the F5 fixture (FixtureSpec's defaults are the F5 widths). The
+# rehearsal's numpy reference side is what costs, so it is cut in depth and
+# steps; the served pack has the whole depth.
+F5_WORK = WORK / "f5"
+REHEARSAL_DEPTH, REHEARSAL_NFE = 2, 8
+GOLDEN_F32 = (1e-4, 1e-2)  # mel MAE, allclose atol: the golden gate in float32
+GOLDEN_BF16_MAX = 5e-2  # the port's bf16 bound (MEL_TOLERANCE)
+GOLDEN_TEXT = "Xin chào Việt Nam."
 
 
 def log(msg: str) -> None:
@@ -1240,6 +1276,311 @@ def phase_training(cfg, smi: str) -> int:
     return got["fused_rope"]
 
 
+# 6 of LONG_TEXT's sentences plan to three chunks in one batch with the F5
+# fixture's voice (a 2 s clip).
+F5_LONG_TEXT = " ".join([LONG_TEXT.split(". ")[0] + "."] * 6)
+
+
+def _run_cli(label: str, args: list, smi: str, timeout: float) -> subprocess.CompletedProcess:
+    """``python -m <args>`` from the checkout's root, timed; raises on a
+    non-zero exit."""
+    env = {**os.environ, "VIETVOICE_LOG_LEVEL": "WARNING"}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{label}: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+    log(f"[10] (b) {label}: {wall:.1f} s wall [{smi}]")
+    return proc
+
+
+def _f5_rehearsal(smi: str) -> None:
+    """Phase 10 (a): the F5 widths at depth 2 and NFE 8, converted and held
+    against the ONNX graphs through the golden harness."""
+    import tarfile
+
+    import torch
+
+    from vietvoice_tts_tpu_torch.golden import (
+        _as_latent_layout, compare_latents, reference_side, torch_latent)
+    from vietvoice_tts_tpu_torch.models.convert import convert_reference_tarball
+    from vietvoice_tts_tpu_torch.models.f5_fixture import FixtureSpec, write_fixture_tarball
+    from vietvoice_tts_tpu_torch.models.onnx_eval import EvalSession
+    from vietvoice_tts_tpu_torch.models.params import from_jax_tree
+    from vietvoice_tts_tpu_torch.models.preflight import preflight_report
+    from vietvoice_tts_tpu_torch.models.vocoder import Vocoder, VocoderConfig
+    from vietvoice_tts_tpu_torch.runtime.engine_core import _true_float32
+    from vietvoice_tts_tpu_torch.runtime.serialization import load_params
+
+    root = F5_WORK / "rehearsal"
+    shutil.rmtree(root, ignore_errors=True)
+    spec = FixtureSpec(depth=REHEARSAL_DEPTH, nfe_step=REHEARSAL_NFE)
+    t0 = time.perf_counter()
+    tar, name_map, _ = write_fixture_tarball(root / "model-bin.pt", spec, seed=0)
+    log(f"[10] (a) fixture dim {spec.dim}, {spec.heads} heads × {spec.head_dim}, depth "
+        f"{spec.depth}, NFE {spec.nfe_step}: {tar.stat().st_size / 2**20:.1f} MiB in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    report = preflight_report(tar, name_map=name_map)
+    route = report["architecture"].get("attention_route", {})
+    log(f"[10] (a) preflight: ok={report['ok']}, {route.get('advice')} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not report["ok"] or route.get("kernel") != 1:
+        raise AssertionError(f"preflight: {report['blockers'][:5]}, route {route}")
+    pack = root / "pack"
+    t0 = time.perf_counter()
+    conv = convert_reference_tarball(tar, pack, name_map=name_map)
+    weights = conv["weights"]
+    log(f"[10] (a) convert: {weights['resolved']} leaves, unresolved "
+        f"{len(weights['unresolved'])} ({time.perf_counter() - t0:.1f} s)")
+    if weights["unresolved"]:
+        raise AssertionError(f"convert left leaves unresolved: {weights['unresolved'][:5]}")
+    t0 = time.perf_counter()
+    ref = reference_side(str(tar), GOLDEN_TEXT, nfe_step=spec.nfe_step)
+    log(f"[10] (a) reference side (numpy evaluator, {os.cpu_count()} host cores): "
+        f"{time.perf_counter() - t0:.1f} s for {ref['noise'].shape} noise, "
+        f"{ref['ref_signal_len']} reference frames")
+
+    want = spec.depth * (spec.nfe_step - 1)
+    bounds = {"float32": 1e-2, "bfloat16": GOLDEN_BF16_MAX}  # kernel vs plain
+    for dtype, plain_tol in bounds.items():
+        latents = {}
+        for use_kernels in (True, False):
+            _reset_launches()
+            t0 = time.perf_counter()
+            latent, info = torch_latent(pack, ref, device="cuda", compute_dtype=dtype,
+                                        use_kernels=use_kernels)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = _launches()
+            expect = {"fused_rope": want if use_kernels else 0, "flash": 0}
+            if got != expect:
+                raise AssertionError(f"(a) {dtype} use_kernels={use_kernels}: launches "
+                                     f"{got}, want {expect}")
+            if not np.isfinite(latent).all():
+                raise AssertionError(f"(a) {dtype}: latent not finite")
+            latents[use_kernels] = latent
+            rep = compare_latents(latent, info["ref_mel"], info["ref_len"], GOLDEN_F32[1])
+            log(f"[10] (a) torch side {dtype} use_kernels={use_kernels}: mel MAE "
+                f"{rep['mel_mae']:.3e}, max-abs {rep['mel_max_abs']:.3e}, allclose "
+                f"{rep['allclose']} over {rep['frames'] - rep['ref_frames']} frames; launches "
+                f"{got}; {wall:.1f} s with the engine's build [{smi}]")
+            if use_kernels and dtype == "float32" and not (
+                    rep["mel_mae"] < GOLDEN_F32[0] and rep["allclose"]):
+                raise AssertionError(f"(a) float32 golden gate failed: {rep}")
+            if use_kernels and dtype == "bfloat16" and rep["mel_max_abs"] > GOLDEN_BF16_MAX:
+                raise AssertionError(f"(a) bfloat16 max-abs over {GOLDEN_BF16_MAX}: {rep}")
+        valid = slice(info["ref_len"], info["n_frames"])
+        err = float(np.abs(latents[True][0, valid] - latents[False][0, valid]).max())
+        log(f"[10] (a) {dtype} latent, kernel vs plain: max-abs {err:.3e} (tol {plain_tol:.0e})")
+        if err > plain_tol:
+            raise AssertionError(f"(a) {dtype} kernel vs plain {err:.3e} > {plain_tol}")
+
+    # decode.onnx through the evaluator against the port's vocoder on the card.
+    with tarfile.open(tar) as t:
+        decode = EvalSession(t.extractfile("decode.onnx").read())
+    latent = _as_latent_layout(ref["ref_mel"], spec.n_mels)
+    ref_len = int(ref["ref_signal_len"])
+    t0 = time.perf_counter()
+    onnx_pcm = decode.run(None, {"noise": latent,
+                                 "ref_signal_len": np.asarray([ref_len], np.int64)})[0]
+    eval_s = time.perf_counter() - t0
+    voc_cfg = VocoderConfig(dim=spec.voc_dim, intermediate_dim=spec.voc_inter,
+                            num_layers=spec.voc_layers, n_mels=spec.n_mels,
+                            n_fft=spec.n_fft, hop_length=spec.hop_length,
+                            compute_dtype=torch.float32)
+    _, voc_state = from_jax_tree(load_params(pack / "params.msgpack"), torch.float32)
+    with torch.device("meta"):
+        vocoder = Vocoder(voc_cfg)
+    vocoder.load_state_dict(voc_state, assign=True)
+    vocoder = vocoder.to("cuda").eval()
+    with torch.inference_mode(), _true_float32():
+        wav = vocoder(torch.from_numpy(latent[:, ref_len:]).cuda()).cpu().numpy()
+    pcm = (np.clip(wav, -1, 1) * 32767.0).astype(np.int16)
+    if onnx_pcm.shape != pcm.shape:
+        raise AssertionError(f"(a) decode shape {onnx_pcm.shape} vs vocoder {pcm.shape}")
+    lsb = int(np.abs(onnx_pcm.astype(np.int32) - pcm.astype(np.int32)).max())
+    log(f"[10] (a) decode.onnx (evaluator, {eval_s:.1f} s) vs the port's vocoder on the "
+        f"card, float32: {pcm.size} samples, largest difference {lsb} LSB (tol 1), "
+        f"peak {int(np.abs(pcm).max())}")
+    if lsb > 1:
+        raise AssertionError(f"(a) decode differs by {lsb} LSB")
+    del vocoder
+    torch.cuda.empty_cache()
+
+
+def _native_crossfade(api, smi: str) -> int:
+    """Phase 10 (c): the long text blocking and streamed through the native
+    cross-fade; returns the fused kernel's launches."""
+    import vietvoice_tts_tpu_torch.pipeline.audio as audio
+    from vietvoice_tts_tpu_torch.native import audio_native, build as native_build
+
+    t0 = time.perf_counter()
+    if not audio_native.available():
+        raise AssertionError("(c) the native audio library is not available (no g++?)")
+    log(f"[10] (c) native library {native_build.library_path().name} ready in "
+        f"{time.perf_counter() - t0:.2f} s")
+    batches, chunks = _chunk_batches(api.engine, F5_LONG_TEXT)
+    if chunks < 2:
+        raise AssertionError(f"(c) the long text planned to {chunks} chunk(s)")
+    calls = []
+    join = audio_native.crossfade_concat
+
+    def recording(waves, duration, sample_rate):
+        out = join(waves, duration, sample_rate)
+        calls.append(([np.array(w) for w in waves], int(duration * sample_rate), out))
+        return out
+
+    audio_native.crossfade_concat = recording
+    joins = audio_native.joins
+    try:
+        _reset_launches()
+        t0 = time.perf_counter()
+        blocking, _ = api.synthesize(F5_LONG_TEXT)
+        block_s = time.perf_counter() - t0
+        blocking_launches = _launches()
+        blocking_joins = audio_native.joins - joins
+        t0 = time.perf_counter()
+        pieces = list(api.synthesize_streaming(F5_LONG_TEXT))
+        stream_s = time.perf_counter() - t0
+        launches = _launches()
+    finally:
+        audio_native.crossfade_concat = join
+    stream_joins = audio_native.joins - joins - blocking_joins
+    log(f"[10] (c) long text, {chunks} chunks in {batches} batch(es): blocking "
+        f"{block_s * 1e3:.1f} ms, {blocking_joins} native joins; streamed {len(pieces)} "
+        f"pieces {stream_s * 1e3:.1f} ms, {stream_joins} native joins; launches "
+        f"{launches} [{smi}]")
+    if blocking_joins != chunks - 1 or stream_joins != chunks - 1:
+        raise AssertionError(f"(c) native joins {blocking_joins}, {stream_joins}; "
+                             f"want {chunks - 1} each")
+    per_batch = api.engine.config.dit_depth * (api.engine.config.nfe_step - 1)
+    want = per_batch * (batches + chunks)  # streaming dispatches one chunk at a time
+    if blocking_launches["fused_rope"] != per_batch * batches or launches != {
+            "fused_rope": want, "flash": 0}:
+        raise AssertionError(f"(c) launches {blocking_launches}, {launches}")
+    _check_wave("(c) blocking", blocking)
+    stream = np.concatenate(pieces)
+    diff = np.abs(stream.astype(np.int32) - blocking.astype(np.int32))
+    if stream.shape != blocking.shape or diff.max() > STREAM_TOLERANCE[0]:
+        raise AssertionError(f"(c) streamed vs blocking: {stream.shape} {blocking.shape}, "
+                             f"max {diff.max() if diff.size else None}")
+    worst = 0
+    for waves, n_fade, out in calls:
+        fixed = [audio.AudioProcessor.fix_clipped_audio(w) for w in waves]
+        ref = fixed[0]
+        for nxt in fixed[1:]:
+            ref = audio._crossfade_pair(ref, nxt, n_fade)
+        if ref.shape != out.shape:
+            raise AssertionError(f"(c) native join length {out.shape} vs numpy {ref.shape}")
+        worst = max(worst, int(np.abs(ref.astype(np.int32) - out.astype(np.int32)).max()))
+    log(f"[10] (c) {len(calls)} native cross-fade calls against numpy on the same chunks: "
+        f"largest difference {worst} LSB (tol 1)")
+    if worst > 1:
+        raise AssertionError(f"(c) native cross-fade differs from numpy by {worst} LSB")
+    chunk_waves = calls[0][0]
+    native_ms, numpy_ms = [], []
+    saved = audio._native_dsp
+    for _ in range(20):
+        t0 = time.perf_counter()
+        audio.AudioProcessor.concatenate_with_crossfade_improved(chunk_waves, 0.1, 24000)
+        native_ms.append((time.perf_counter() - t0) * 1e3)
+        audio._native_dsp = lambda: None
+        try:
+            t0 = time.perf_counter()
+            audio.AudioProcessor.concatenate_with_crossfade_improved(chunk_waves, 0.1, 24000)
+            numpy_ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            audio._native_dsp = saved
+    log(f"[10] (c) cross-fade of {len(chunk_waves)} chunks "
+        f"({sum(len(w) for w in chunk_waves)} samples), median of 20 on the host: numpy "
+        f"{statistics.median(numpy_ms):.3f} ms, native {statistics.median(native_ms):.3f} ms, "
+        f"against {block_s * 1e3:.1f} ms for the request [{smi}]")
+    return launches["fused_rope"]
+
+
+def phase_conversion(smi: str) -> int:
+    """Phase 10: conversion day at the F5 widths; returns the fused kernel's
+    launches over the requests served from the converted pack."""
+    import torch
+
+    import vietvoice_tts_tpu_torch as vt
+    from vietvoice_tts_tpu_torch.runtime.session import config_from_pack
+
+    t_phase = time.perf_counter()
+    _f5_rehearsal(smi)
+    log(f"[10] (a) done in {time.perf_counter() - t_phase:.1f} s")
+
+    # (b) The whole depth, through the command lines.
+    t_b = time.perf_counter()
+    root = F5_WORK / "full"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    tar = root / "model-bin.pt"
+    _run_cli("fixture CLI (FixtureSpec(), 22 layers)",
+             ["vietvoice_tts_tpu_torch.models.f5_fixture", str(tar)], smi, 600)
+    log(f"[10] (b) tarball {tar.stat().st_size / 2**30:.2f} GiB")
+    _run_cli("preflight CLI", ["vietvoice_tts_tpu_torch.models.preflight", str(tar),
+                               "--out", str(root / "preflight.json")], smi, 600)
+    report = json.loads((root / "preflight.json").read_text())
+    route = report["architecture"].get("attention_route", {})
+    log(f"[10] (b) preflight: ok={report['ok']}, {route.get('advice')}, "
+        f"{report['weights']['leaves_total']} leaves, {len(report['warnings'])} warnings")
+    if not report["ok"] or route.get("kernel") != 1:
+        raise AssertionError(f"(b) preflight: {report['blockers'][:5]}, route {route}")
+    pack = root / "packs" / "vietvoice-tpu-v1"
+    proc = _run_cli("convert CLI", ["vietvoice_tts_tpu_torch.models.convert", str(tar),
+                                    str(pack)], smi, 600)
+    conv = json.loads(proc.stdout)
+    meta = json.loads((pack / "model_meta.json").read_text())
+    log(f"[10] (b) convert: {conv['weights']['resolved']} leaves, unresolved "
+        f"{len(conv['weights']['unresolved'])}, synthetic {meta['synthetic']}, "
+        f"heads {meta['dit']['heads']}")
+    if conv["weights"]["unresolved"] or meta["synthetic"]:
+        raise AssertionError(f"(b) conversion incomplete: {conv['weights']}")
+    del proc, conv
+
+    # Served from the converted pack: its own widths, real-weights gate on.
+    cfg = config_from_pack(pack, allow_synthetic_pack=False)
+    if (cfg.dit_heads, cfg.head_dim, cfg.dit_depth, cfg.device) != (16, 64, 22, "cuda"):
+        raise AssertionError(f"(b) pack config {cfg.dit_heads}×{cfg.head_dim}, "
+                             f"depth {cfg.dit_depth}, {cfg.device}")
+    launches_total = 0
+    with vt.TTSApi(cfg) as api:
+        t0 = time.perf_counter()
+        api.engine  # noqa: B018 — loads the pack
+        log(f"[10] (b) TTSApi loaded the converted pack in {time.perf_counter() - t0:.1f} s "
+            f"(synthetic {api.engine.model_session_manager.is_synthetic})")
+        batches, _ = _chunk_batches(api.engine, SHORT_TEXT)
+        per_batch = cfg.dit_depth * (cfg.nfe_step - 1)
+        if per_batch != 682:
+            raise AssertionError(f"(b) {per_batch} DiT evaluations per solve, want 22 × 31")
+        waves = []
+        for label in ("cold", "warm"):
+            _reset_launches()
+            t0 = time.perf_counter()
+            wave, _ = api.synthesize(SHORT_TEXT)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = _launches()
+            if got != {"fused_rope": per_batch * batches, "flash": 0}:
+                raise AssertionError(f"(b) {label}: launches {got}, want "
+                                     f"{per_batch * batches} of kernel 1")
+            _check_wave(f"(b) {label}", wave)
+            launches_total += got["fused_rope"]
+            waves.append(wave)
+            log(f"[10] (b) short sentence at 16 × 64, full depth, bf16, {label}: "
+                f"{wall * 1e3:.1f} ms wall, {wave.size / cfg.sample_rate:.2f} s audio, "
+                f"peak {int(np.abs(wave).max())}, launches {got} [{smi}]")
+        if not np.array_equal(waves[0], waves[1]):
+            raise AssertionError("(b) the same request twice gave different audio")
+        log(f"[10] (b) done in {time.perf_counter() - t_b:.1f} s")
+        launches_total += _native_crossfade(api, smi)
+    log(f"[10] done in {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return launches_total
+
+
 def main() -> int:
     try:
         import torch
@@ -1281,9 +1622,11 @@ def main() -> int:
     torch.cuda.synchronize()
     trained_launches = phase_training(cfg, smi)
     torch.cuda.synchronize()
+    converted_launches = phase_conversion(smi)
+    torch.cuda.synchronize()
     launches = {
         "fused_rope": (launches["fused_rope"] + batched["fused_rope"] + rest_launches
-                       + trained_launches),
+                       + trained_launches + converted_launches),
         "flash": launches["flash"] + batched["flash"],
     }
     fused_record["launches"] = launches["fused_rope"]

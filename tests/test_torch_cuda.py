@@ -614,3 +614,44 @@ def test_cuda_rest_health_reports_cuda(cuda_device, tmp_path):
     finally:
         te.reset_engine()
         te._engine_config = old
+
+
+# -- conversion day: a converted F5-shaped pack served through kernel 1 ----------
+
+
+def test_cuda_converted_pack_serves_through_kernel_1(cuda_device, tmp_path):
+    """The F5 fixture at head_dim 64 (dim 128, 2 heads, depth 1, NFE 4):
+    preflight names kernel 1, the converter leaves nothing unresolved, and the
+    converted pack's mel latent on the card, from the ONNX graphs' own noise,
+    is within 1e-4 mel MAE (and allclose at 1e-2) of the numpy evaluator's in
+    float32 and within 5e-2 max-abs in bfloat16, with depth × (NFE − 1) = 3
+    launches of kernel 1 per solve and none of kernel 2."""
+    from vietvoice_tts_tpu_torch.config import ModelConfig
+    from vietvoice_tts_tpu_torch.golden import reference_side, torch_side
+    from vietvoice_tts_tpu_torch.models.convert import convert_reference_tarball
+    from vietvoice_tts_tpu_torch.models.f5_fixture import FixtureSpec, write_fixture_tarball
+    from vietvoice_tts_tpu_torch.models.preflight import preflight_report
+
+    spec = FixtureSpec(dim=128, depth=1, heads=2, ff_mult=2, n_mels=20, text_dim=32,
+                       text_conv_layers=2, vocab_size=211, voc_dim=48, voc_inter=96,
+                       voc_layers=2, nfe_step=4)
+    tar, name_map, _ = write_fixture_tarball(tmp_path / "model-bin.pt", spec, seed=3)
+    report = preflight_report(tar, name_map=name_map)
+    assert report["architecture"]["attention_route"]["kernel"] == 1
+    # The probe needs two layers to see a depth, so depth 1 is configured.
+    cfg = ModelConfig(device="cpu", dit_dim=128, dit_depth=1, dit_heads=2, n_mels=20,
+                      text_dim=32, text_conv_layers=2, vocoder_dim=48,
+                      vocoder_intermediate_dim=96, vocoder_num_layers=2)
+    pack = tmp_path / "pack"
+    conv = convert_reference_tarball(tar, pack, config=cfg, name_map=name_map)
+    assert conv["weights"]["unresolved"] == []
+    ref = reference_side(str(tar), "xin chào", nfe_step=spec.nfe_step)
+    for dtype in ("float32", "bfloat16"):
+        before = fra.launches, fa.launches
+        rep = torch_side(pack, ref, device="cuda", compute_dtype=dtype)
+        torch.cuda.synchronize()
+        assert (fra.launches - before[0], fa.launches - before[1]) == (3, 0)
+        if dtype == "float32":
+            assert rep["allclose"] and rep["mel_mae"] < 1e-4, rep
+        else:
+            assert rep["mel_max_abs"] <= 5e-2, rep

@@ -335,7 +335,10 @@ class TestHostCopies:
                 assert na == nb and np.array_equal(a, b)
 
     def test_wavio_and_audio(self, tmp_path, monkeypatch):
-        monkeypatch.setattr(jaudio, "_native_dsp", lambda: None)  # numpy path
+        # The numpy paths of both packages (the native library has its own
+        # test, within 1 LSB: tests/test_torch_native.py).
+        monkeypatch.setattr(jaudio, "_native_dsp", lambda: None)
+        monkeypatch.setattr(taudio, "_native_dsp", lambda: None)
         rng = np.random.default_rng(2)
         x = (0.5 * rng.standard_normal(4000)).astype(np.float32)
         assert twavio.wav_bytes(x, 24000) == jwavio.wav_bytes(x, 24000)

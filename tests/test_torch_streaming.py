@@ -53,7 +53,10 @@ def _chunks(lengths, seed=0, scale=0.6):
     (),
 ])
 def test_stream_with_crossfade_matches_jax(monkeypatch, lengths, fade):
-    monkeypatch.setattr(jaudio, "_native_dsp", lambda: None)  # numpy path
+    # The numpy paths of both packages (the native library has its own test,
+    # within 1 LSB: tests/test_torch_native.py).
+    monkeypatch.setattr(jaudio, "_native_dsp", lambda: None)
+    monkeypatch.setattr(taudio, "_native_dsp", lambda: None)
     chunks = _chunks(lengths)
     ref = list(jaudio.AudioProcessor.stream_with_crossfade(iter(chunks), fade, 24000))
     out = list(taudio.AudioProcessor.stream_with_crossfade(iter(chunks), fade, 24000))

@@ -1,7 +1,8 @@
 """Audio I/O and host-side DSP.
 
-A copy of ``vietvoice_tts_tpu/pipeline/audio.py`` with its numpy cross-fade
-only (the optional C++ host DSP library is not ported yet). Behavioral
+A copy of ``vietvoice_tts_tpu/pipeline/audio.py``. The cross-fade runs in
+the C++ host library (``native/``, built with ``g++`` at first use) and in
+numpy where the host has no ``g++``; the two agree within 1 LSB. Behavioral
 parity with the reference's ``AudioProcessor``
 (``vietvoicetts/core/audio_processor.py:12-193``): load/mono/resample →
 int16 normalize, clipped-audio repair, WAV save, and the equal-power
@@ -25,6 +26,14 @@ log = get_logger("audio")
 INT16_MAX = 32767.0
 PEAK_TARGET = 29491.0  # 90% of int16 range (reference audio_processor.py:39)
 CLIP_RESCALE = 26214.0  # 80% of int16 range (reference audio_processor.py:56)
+
+
+def _native_dsp():
+    """The ctypes-bound C++ DSP module, or None where the host has no g++
+    (a library that fails to build raises)."""
+    from ..native import audio_native
+
+    return audio_native if audio_native.available() else None
 
 
 def _crossfade_pair(prev: np.ndarray, nxt: np.ndarray, n_fade: int) -> np.ndarray:
@@ -111,6 +120,10 @@ class AudioProcessor:
         if cross_fade_duration <= 0:
             return np.concatenate(waves)
 
+        native = _native_dsp()
+        if native is not None:
+            return native.crossfade_concat(waves, cross_fade_duration, sample_rate)
+
         final = waves[0]
         for nxt in waves[1:]:
             final = _crossfade_pair(final, nxt, int(cross_fade_duration * sample_rate))
@@ -129,10 +142,17 @@ class AudioProcessor:
         ``chunks`` is any iterable of int16 arrays (typically a generator
         pulling completed device batches). Yields int16 arrays."""
         n_fade = int(cross_fade_duration * sample_rate)
+        native = _native_dsp()
         tail: np.ndarray | None = None
         for raw in chunks:
             w = AudioProcessor.fix_clipped_audio(np.asarray(raw).reshape(-1))
-            merged = w if tail is None else _crossfade_pair(tail, w, n_fade)
+            if tail is None:
+                merged = w
+            elif native is not None and min(n_fade, len(tail), len(w)) > 0:
+                # Pairwise native join (the same C++ fold as the batch path).
+                merged = native.crossfade_concat([tail, w], cross_fade_duration, sample_rate)
+            else:
+                merged = _crossfade_pair(tail, w, n_fade)
             hold = min(n_fade, len(merged))
             if len(merged) > hold:
                 yield merged[: len(merged) - hold]
