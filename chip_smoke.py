@@ -100,10 +100,32 @@ check raises):
     native cross-fade (``native/``, built with ``g++``) on a three-chunk text,
     blocking and streamed: the join counter moves, every join within 1 LSB
     of the numpy cross-fade of the same chunks, and their times side by side.
+11. ``parallel/`` at full width, as ranks (processes started here) that
+    share the card over gloo (NCCL refuses two ranks on one device), each
+    against one rank in this process, seeded pack with opened gates:
+    (a) tensor parallelism, TP 2, ``EngineCore.mel_latent_batch`` at bucket
+    384 from one injected noise — 8 × 128 in float32 (TF32 off, ≤ 1e-2) and
+    bfloat16 (≤ MEL_TOLERANCE), 16 × 64 and 32 × 32 in bfloat16 — with 682
+    launches per rank of kernel 1 at 4 × 128 and 8 × 64 and of kernel 2 at
+    16 × 32; (b) Ulysses, sequence parallel 2, bucket 2048, bfloat16, 682
+    kernel-1 launches per rank on all 2048 frames at 4 heads; (c) the ring,
+    sequence parallel 3 (8 heads do not split over 3), bucket 384, float32,
+    no kernel;
+    (d) data parallelism, four rows at bucket 256 split 2 + 2, PCM within 64
+    of 32767; (e) two float32 train steps of DP 2 and of TP 2, batch 8 ×
+    256, loss within 1e-5 relative and every parameter leaf within 1e-4 of
+    its max-abs, no launch; (f) ``MultiHostServingLoop`` on TP 2 in float32:
+    rank 0 submits the short request's chunk and the long text's first
+    chunk, both ranks dispatch in lockstep (682 launches per dispatch), the
+    served PCM within STREAM_TOLERANCE, and rank 0's stop ends both loops. Every
+    tensor at a collective and every DiT and vocoder output must be on the
+    card. The ranks' collectives are staged through host memory: no time
+    of this phase is a scaling number.
 
 Phases 2-4 and 10 (a) hold each kernel against its plain version; the main
 path whose launches the kernels' record counts is every serving request of
-phases 5-10 (counters set to 0 just before, read just after).
+phases 5-11 (counters set to 0 just before, read just after; in phase 11
+each rank counts its own, and the record sums them).
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``. Weights are random, made from a seed, and
@@ -136,7 +158,10 @@ TRAIN_WORK = WORK / "train"  # a copy of the seeded pack, trained and served by 
 # Phase-3 shapes (B, N, H, D): B = 2 × batch for CFG; N from the frame
 # buckets; 8×128 is the default model, 16×64 a converted F5 model; 448 is
 # the batch-1 latency shape, 437 an N that is not a multiple of 8, and
-# B = 6 at 2048 the long text's three chunks as one blocking batch.
+# B = 6 at 2048 the long text's three chunks as one blocking batch. The
+# last three are a rank's heads in phase 11: 8×128 and 16×64 split over
+# tensor parallelism 2 at bucket 384, and Ulysses 2's 4 heads on the whole
+# 2048 frames.
 KERNEL_SHAPES = [
     (2, 512, 8, 128),
     (2, 512, 16, 64),
@@ -145,11 +170,16 @@ KERNEL_SHAPES = [
     (2, 2048, 8, 128),
     (6, 2048, 8, 128),
     (2, 437, 8, 128),
+    (2, 384, 4, 128),
+    (2, 384, 8, 64),
+    (2, 2048, 4, 128),
 ]
 LATENCY_SHAPE = (2, 448, 8, 128)
 # Phase-3 shapes of flash_attention, (B, H, N, D): 32×32 is the default
 # model's width split into heads the fused kernel does not take (its batch-1
-# latency shape first); the rest cover every head_dim the kernel has.
+# latency shape first); the rest cover every head_dim the kernel has, and
+# the last is a rank's 16 heads of 32×32 under phase 11's tensor
+# parallelism 2 at bucket 384.
 FLASH_SHAPES = [
     (2, 32, 448, 32),
     (2, 32, 2048, 32),
@@ -158,6 +188,7 @@ FLASH_SHAPES = [
     (2, 8, 437, 128),
     (2, 4, 448, 256),
     (2, 8, 512, 96),
+    (2, 16, 384, 32),
 ]
 FLASH_LATENCY_SHAPE = (2, 32, 448, 32)
 # Published peaks of one H100 SXM (NVIDIA's data sheet; dense): device
@@ -1581,6 +1612,502 @@ def phase_conversion(smi: str) -> int:
     return launches_total
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: parallel/ on one card. The ranks are processes that share cuda:0
+# over gloo (NCCL refuses two ranks on one device), and gloo's collectives
+# go through pinned host memory (parallel/comm.py): every time below is of
+# ranks taking turns on one card over a host-staged transport, so none of
+# them is a scaling number.
+# ---------------------------------------------------------------------------
+
+P11_WORK = WORK / "parallel"
+P11_TIMEOUT = 600.0  # seconds a launch of ranks may take before it is killed
+P11_THREADS = 2  # host threads per rank (8 cores, up to 3 ranks)
+P11_TRAIN = dict(compute_dtype="float32", warmup_steps=1)  # (e): the 2nd update moves
+P11_A_RUNS = [  # (label, heads, dtype, route) of (a), TP 2, bucket 384
+    ("8x128", 8, "float32", "fused_rope"),
+    ("8x128", 8, "bfloat16", "fused_rope"),
+    ("16x64", 16, "bfloat16", "fused_rope"),
+    ("32x32", 32, "bfloat16", "flash"),
+]
+P11_PCM_TOLERANCE = 64  # of 32767 per sample: data parallel against one rank
+# (b) at the serving dtype only, (c) in float32 only: every collective of a
+# solve goes through host memory, so each solve costs tens of seconds here.
+P11_B_DTYPE = "bfloat16"
+P11_C_DTYPE = "float32"
+# (f) compares the served PCM with one rank's: in float32 (TF32 off) tensor
+# parallelism is exact to ~1e-5 and the comparison is one of the loop. In
+# bfloat16, TP changes the summation order of every matmul and the solve
+# drifts (a)'s 3.7e-2–4.1e-2 max-abs, which took a served chunk to a mean of
+# 2.569 of 32767 from one rank's on an H100 (700 W), past STREAM_TOLERANCE's
+# 2.0 (set for streaming against blocking, one change of batch size).
+P11_F_DTYPE = "float32"
+
+
+def _p11_batch(ref: np.ndarray, vocab: int, n: int, b: int, seed: int) -> dict:
+    """A padded batch at bucket ``n``: the catalogue voice's reference
+    (up to 40% of the bucket), random text, a shorter valid length per row,
+    and an injected noise."""
+    hop = 256
+    rng = np.random.default_rng(seed)
+    ref_len = np.full((b,), min((2 * n) // 5, len(ref) // hop), np.int32)
+    total_len = np.array([n - 8 - 12 * i for i in range(b)], np.int32)
+    wave = np.zeros((b, n * hop), np.float32)
+    wave[:, : ref_len[0] * hop] = ref[: ref_len[0] * hop]
+    ids = np.full((b, n), -1, np.int32)
+    ids[:, : n // 3] = rng.integers(0, vocab, (b, n // 3))
+    x0 = rng.standard_normal((b, n, 100)).astype(np.float32)
+    return dict(args=(wave, ref_len, ids, total_len), seed=np.arange(b, dtype=np.uint32), x0=x0)
+
+
+def _p11_params(cfg):
+    """The seeded pack with opened gates, and its vocabulary size."""
+    from vietvoice_tts_tpu_torch.runtime.session import ModelSessionManager
+
+    mgr = ModelSessionManager(cfg)
+    mgr.load_models()
+    return _perturbed_gates(mgr.params), mgr.vocab_size, mgr
+
+
+def _p11_watch(state: dict):
+    """Record any activation of a rank that is not on the card: a
+    collective (``parallel/comm.py``) that returns on another device than
+    its input's, and any output of the DiT's forward or the vocoder that is
+    off the card. Returns a function that hooks an ``EngineCore``."""
+    import torch
+
+    from vietvoice_tts_tpu_torch.parallel import comm
+
+    def check(name, value):
+        for t in value if isinstance(value, (tuple, list)) else (value,):
+            if isinstance(t, torch.Tensor) and t.device.type != "cuda":
+                state.setdefault("off_device", []).append(name)
+
+    if not state.get("patched"):
+        for name in ("all_reduce", "all_gather", "all_to_all", "ring_shift"):
+            real = getattr(comm, name)
+
+            def wrapped(x, *args, _real=real, _name=name, **kw):
+                out = _real(x, *args, **kw)
+                first = lambda v: v[0] if isinstance(v, (tuple, list)) else v  # noqa: E731
+                if first(out).device != first(x).device:
+                    state.setdefault("off_device", []).append(_name)
+                return out
+
+            setattr(comm, name, wrapped)
+        state["patched"] = True
+
+    def hook_core(core):
+        real = core.dit.forward_embedded
+
+        def forward_embedded(*args, **kw):
+            out = real(*args, **kw)
+            check("dit", out)
+            return out
+
+        core.dit.forward_embedded = forward_embedded
+        core.vocoder.register_forward_hook(lambda mod, inp, out: check("vocoder", out))
+        return core
+
+    return hook_core
+
+
+def _p11_measure(fn):
+    """(result, launches, wall s, peak device GB) of one ``fn()``."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, _launches(), time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 1e9
+
+
+def _p11_step_a(rank, d, meshes, hook):
+    from vietvoice_tts_tpu_torch.runtime.engine_core import EngineCore
+
+    out = {}
+    b = d["b384"]
+    for label, heads, dtype, _ in P11_A_RUNS:
+        cfg = dataclasses.replace(d["cfg"], dit_heads=heads, compute_dtype=dtype)
+        core = hook(EngineCore(cfg, d["params"], d["vocab"], mesh=meshes["tp"]))
+        out[(label, dtype)] = _p11_measure(
+            lambda: core.mel_latent_batch(*b["args"], seed=b["seed"], x0=b["x0"]))
+        del core
+    return out
+
+
+def _p11_step_sp(rank, d, meshes, hook, mesh_name, batch, dtype):
+    from vietvoice_tts_tpu_torch.runtime.engine_core import EngineCore
+
+    b = d[batch]
+    cfg = dataclasses.replace(d["cfg"], dit_heads=8, compute_dtype=dtype, sequence_parallel=True)
+    core = hook(EngineCore(cfg, d["params"], d["vocab"], mesh=meshes[mesh_name]))
+    return _p11_measure(lambda: core.mel_latent_batch(*b["args"], seed=b["seed"], x0=b["x0"]))
+
+
+def _p11_step_d(rank, d, meshes, hook):
+    from vietvoice_tts_tpu_torch.runtime.engine_core import EngineCore
+
+    core = hook(EngineCore(d["cfg"], d["params"], d["vocab"], mesh=meshes["dp"]))
+    b = d["b256x4"]
+    return _p11_measure(lambda: core.synthesize_batch(*b["args"], seed=b["seed"]))
+
+
+def _p11_random_biases(tree: dict, seed: int = 13) -> dict:
+    """The DiT tree with every bias drawn N(0, 0.05²): from zero, Adam's
+    first real update of a bias is ±lr wherever its gradient is, and near
+    Adam's eps that sign rides on the gradient's last bits, which would
+    make the comparison one of eps, not of the mesh."""
+    rng = np.random.default_rng(seed)
+
+    def walk(node, key=None):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        return rng.normal(0.0, 0.05, node.shape).astype(np.float32) if key == "b" else node
+
+    return walk(tree)
+
+
+def _p11_step_e(rank, d, meshes, hook):
+    """Two f32 train steps (TF32 off) of DP 2 and of TP 2 against one rank
+    (computed on rank 0), batch 8 × 256, from one tree, batch and draws."""
+    import torch
+
+    from vietvoice_tts_tpu_torch.models.dit import DiTConfig
+    from vietvoice_tts_tpu_torch.models.params import to_jax_tree
+    from vietvoice_tts_tpu_torch.parallel.sharding import gather_tree, param_pspecs, shard_tree
+    from vietvoice_tts_tpu_torch.training import train as ttrain
+
+    cfg = d["cfg"]
+    tcfg = ttrain.TrainConfig(**P11_TRAIN)
+    tree = _p11_random_biases(d["params"]["dit"])
+    dcfg = DiTConfig(dim=cfg.dit_dim, depth=cfg.dit_depth, heads=cfg.dit_heads,
+                     ff_mult=cfg.dit_ff_mult, n_mels=cfg.n_mels, text_dim=cfg.text_dim,
+                     text_conv_layers=cfg.text_conv_layers, vocab_size=d["vocab"])
+    rng = np.random.default_rng(14)
+    b, n = 8, 256
+    batch = ttrain.as_tensors(
+        rng.standard_normal((b, n, cfg.n_mels)).astype(np.float32) - 5.0,
+        rng.integers(-1, d["vocab"], (b, n)).astype(np.int32),
+        np.array([256, 200, 180, 256, 128, 240, 96, 256], np.int32), "cuda")
+    draws = ttrain.draw(torch.Generator().manual_seed(15), b, n, cfg.n_mels, tcfg).to("cuda")
+
+    def two_steps(dit_cfg, dit_tree, mesh):
+        dit, opt = ttrain.init_train_state(dit_tree, dit_cfg, tcfg, "cuda")
+        step = ttrain.make_train_step(dit_cfg, tcfg, mesh)
+        losses = [step(dit, opt, draws, *batch).item() for _ in range(2)]
+        return dit, opt, losses
+
+    out = {}
+    if rank == 0:
+        dit, _, ref_losses = two_steps(dcfg, tree, None)
+        ref_tree = to_jax_tree(dit)
+        del dit
+        torch.cuda.empty_cache()
+    for name in ("dp", "tp"):
+        mesh = meshes[name]
+        mcfg = dataclasses.replace(dcfg, model_group=mesh.model_group)
+        specs = param_pspecs(mcfg, None)["dit"]
+        mtree = tree
+        if mesh.model_group is not None:
+            mtree = shard_tree(tree, specs, mesh.model_index, mesh.model)
+
+        def run():
+            dit, opt, losses = two_steps(mcfg, mtree, mesh)
+            return gather_tree(to_jax_tree(dit), specs, mesh.model_group), losses
+
+        (got_tree, losses), launches, wall, peak = _p11_measure(run)
+        worst = None
+        if rank == 0:
+            worst = max(
+                float(np.abs(_leaf(got_tree, path) - ref).max()) / max(float(np.abs(ref).max()), 1e-30)
+                for path, ref in _leaves(ref_tree)
+            )
+            rel = abs(losses[-1] - ref_losses[-1]) / abs(ref_losses[-1])
+            out[name] = ((losses, ref_losses, rel, worst), launches, wall, peak)
+        else:
+            out[name] = ((losses, None, None, None), launches, wall, peak)
+        del got_tree
+        torch.cuda.empty_cache()
+    return out
+
+
+def _p11_step_f(rank, d, meshes, hook):
+    """MultiHostServingLoop on TP 2: rank 0 submits the short request's
+    chunk and the long text's first chunk; both ranks dispatch in lockstep;
+    rank 0's stop() stops both loops. In P11_F_DTYPE."""
+    import torch
+
+    from vietvoice_tts_tpu_torch.runtime.engine_core import EngineCore
+    from vietvoice_tts_tpu_torch.serving import ChunkJob, MultiHostServingLoop
+
+    cfg = dataclasses.replace(d["cfg"], compute_dtype=P11_F_DTYPE)
+    core = hook(EngineCore(cfg, d["params"], d["vocab"], mesh=meshes["tp"]))
+    dispatches = []
+    real = core.synthesize_batch_async
+
+    def counting(wave, *args, **kw):
+        dispatches.append(int((np.asarray(args[0]) > 0).sum()))  # real rows
+        return real(wave, *args, **kw)
+
+    core.synthesize_batch_async = counting
+
+    def serve():
+        loop = MultiHostServingLoop(core, max_wait_ms=50.0)
+        loop.start()
+        waves = None
+        if rank == 0:
+            futures = [loop.submit(ChunkJob(**job)) for job in d["jobs"]]
+            waves = [f.result(timeout=P11_TIMEOUT) for f in futures]
+            loop.stop(timeout=P11_TIMEOUT)
+        loop._thread.join(timeout=P11_TIMEOUT)
+        if loop._thread.is_alive() or loop._running:
+            raise AssertionError(f"rank {rank}: the serving loop did not stop")
+        torch.cuda.synchronize()
+        return waves
+
+    waves, launches, wall, peak = _p11_measure(serve)
+    return waves, launches, wall, peak, list(dispatches)
+
+
+def _p11_rank(rank: int, world: int, workdir: str, steps: tuple, d: dict) -> None:
+    """One rank of a phase-11 launch: join the gloo group, run ``steps``,
+    write the results (or the traceback) under ``workdir``."""
+    import datetime
+    import pickle
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(P11_THREADS)
+    out = Path(workdir)
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{out / 'rendezvous'}", rank=rank,
+                                world_size=world, timeout=datetime.timedelta(seconds=P11_TIMEOUT))
+        from vietvoice_tts_tpu_torch.parallel.mesh import make_mesh
+
+        params, vocab, _ = _p11_params(d["cfg"])
+        d = {**d, "params": params, "vocab": vocab}
+        meshes = ({"ring": make_mesh(1, 3)} if world == 3
+                  else {"tp": make_mesh(1, 2), "dp": make_mesh(2, 1)})
+        state: dict = {}
+        hook = _p11_watch(state)
+        steps_fn = {
+            "a": _p11_step_a,
+            "b": lambda r, d_, m, h: _p11_step_sp(r, d_, m, h, "tp", "b2048", P11_B_DTYPE),
+            "c": lambda r, d_, m, h: _p11_step_sp(r, d_, m, h, "ring", "b384", P11_C_DTYPE),
+            "d": _p11_step_d,
+            "e": _p11_step_e,
+            "f": _p11_step_f,
+        }
+        results = {}
+        for step in steps:
+            t0 = time.perf_counter()
+            results[step] = steps_fn[step](rank, d, meshes, hook)
+            results[step + "_wall"] = time.perf_counter() - t0
+            if rank == 0:
+                log(f"[11] step ({step}) took {results[step + '_wall']:.1f} s on rank 0")
+        results["off_device"] = state.get("off_device", [])
+        (out / f"rank{rank}.pkl").write_bytes(pickle.dumps(results))
+        dist.destroy_process_group()
+    except BaseException:
+        (out / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+
+
+def _p11_launch(world: int, steps: tuple, d: dict, name: str) -> list:
+    """Start ``world`` ranks (spawn), join them with a timeout, kill any
+    left, and return each rank's results; any failed rank raises."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    workdir = P11_WORK / name
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_p11_rank, args=(r, world, str(workdir), steps, d), daemon=True)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + P11_TIMEOUT
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    errors = "".join(f.read_text() for f in sorted(workdir.glob("rank*.err")))
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world:
+        raise AssertionError(f"[11] {name}: rank exit codes {codes}\n{errors}")
+    return [pickle.loads((workdir / f"rank{r}.pkl").read_bytes()) for r in range(world)]
+
+
+def _p11_check_latent(label, results, ref, dtype, card, want, route):
+    """Each rank's latent against one rank's; launches per rank as wanted."""
+    max_tol, mean_tol = MEL_TOLERANCE[dtype]
+    for rank, (lat, launches, wall, peak) in enumerate(results):
+        diff = np.abs(lat - ref)
+        err, mean = float(diff.max()), float(diff.mean())
+        expect = {k: (want if k == route else 0) for k in launches}
+        log(f"[11] {label} {dtype} rank {rank}: latent vs one rank max-abs {err:.3e} "
+            f"(tol {max_tol:.0e}), mean-abs {mean:.3e} (tol {mean_tol:.0e}); launches {launches}; "
+            f"{wall:.1f} s wall, peak {peak:.2f} GB [{card}]")
+        if not (np.isfinite(lat).all() and err <= max_tol and mean <= mean_tol):
+            raise AssertionError(f"[11] {label} {dtype} rank {rank}: outside tolerance")
+        if launches != expect:
+            raise AssertionError(f"[11] {label} {dtype} rank {rank}: launches {launches}, want {expect}")
+
+
+def phase_parallel(cfg, smi: str) -> dict:
+    """parallel/ and the lockstep serving loop, as ranks sharing the card;
+    returns each kernel's launches summed over the ranks."""
+    import torch
+
+    from vietvoice_tts_tpu_torch.pipeline.audio import AudioProcessor
+    from vietvoice_tts_tpu_torch.pipeline.engine import TTSEngine
+    from vietvoice_tts_tpu_torch.runtime.engine_core import EngineCore
+
+    t_phase = time.perf_counter()
+    card = f"{torch.cuda.get_device_name(0)}, {smi.split(',')[-1].strip()}"
+    params, vocab, mgr = _p11_params(cfg)
+    ref_audio, _ = mgr.select_sample()
+    ref = AudioProcessor.load_audio(ref_audio, cfg.sample_rate).astype(np.float32) / 32768.0
+    d = dict(cfg=cfg, b384=_p11_batch(ref, vocab, 384, 1, 21),
+             b2048=_p11_batch(ref, vocab, 2048, 1, 22), b256x4=_p11_batch(ref, vocab, 256, 4, 23))
+
+    # One rank: the references.
+    refs = {}
+    for label, heads, dtype, _ in P11_A_RUNS:
+        core = EngineCore(dataclasses.replace(cfg, dit_heads=heads, compute_dtype=dtype),
+                          params, vocab)
+        b = d["b384"]
+        refs[(label, dtype)] = core.mel_latent_batch(*b["args"], seed=b["seed"], x0=b["x0"])
+        del core
+    core = EngineCore(dataclasses.replace(cfg, dit_heads=8, compute_dtype=P11_B_DTYPE),
+                      params, vocab)
+    b = d["b2048"]
+    refs["2048"] = core.mel_latent_batch(*b["args"], seed=b["seed"], x0=b["x0"])
+    del core
+    core = EngineCore(cfg, params, vocab)
+    b = d["b256x4"]
+    refs["d"] = core.synthesize_batch(*b["args"], seed=b["seed"])
+    engine = TTSEngine(cfg)
+    jobs = []
+    for text in (SHORT_TEXT, LONG_TEXT):
+        ref_path, ref_text = engine.model_session_manager.select_sample()
+        ref_f32 = engine._load_ref(ref_path).astype(np.float32) / 32768.0
+        plan = engine._plan_chunks(ref_f32, ref_text, text)[0]
+        wave, ids = engine._chunk_row(plan, ref_f32)
+        jobs.append(dict(bucket=plan.bucket, wave=wave, ref_len=plan.ref_len,
+                         total_len=plan.total_len, text_ids=ids, seed=plan.index))
+    engine.cleanup()
+    del engine, core
+    core = EngineCore(dataclasses.replace(cfg, compute_dtype=P11_F_DTYPE), params, vocab)
+    # The loop broadcasts the reference prefix in float16 (serving/multihost.py):
+    # the one-rank reference takes the same rounded wave.
+    refs["f"] = [
+        core.synthesize_batch(j["wave"][None].astype(np.float16).astype(np.float32),
+                              np.array([j["ref_len"]]), j["text_ids"][None],
+                              np.array([j["total_len"]]), seed=np.array([j["seed"]], np.uint32))[0]
+        for j in jobs
+    ]
+    del core
+    torch.cuda.empty_cache()
+    d["jobs"] = jobs
+    log(f"[11] one-rank references in {time.perf_counter() - t_phase:.1f} s [{smi}]")
+
+    t0 = time.perf_counter()
+    two = _p11_launch(2, ("a", "b", "d", "e", "f"), d, "two_ranks")
+    log(f"[11] two ranks (a, b, d, e, f) in {time.perf_counter() - t0:.1f} s wall "
+        f"(spawn and pack loading included) [{smi}]")
+    t0 = time.perf_counter()
+    three = _p11_launch(3, ("c",), d, "three_ranks")
+    log(f"[11] three ranks (c) in {time.perf_counter() - t0:.1f} s wall [{smi}]")
+
+    depth, evals = cfg.dit_depth, cfg.nfe_step - 1
+    per_solve = depth * evals
+    total = {"fused_rope": 0, "flash": 0}
+    for r in two + three:
+        if r["off_device"]:
+            raise AssertionError(f"[11] tensors off the card: {sorted(set(r['off_device']))}")
+
+    # (a) TP 2 at bucket 384: kernel 1 at 4 × 128 and 8 × 64, kernel 2 at 16 × 32.
+    for label, heads, dtype, route in P11_A_RUNS:
+        _p11_check_latent(f"(a) TP 2 {label} → {heads // 2}x{1024 // heads} per rank",
+                          [r["a"][(label, dtype)] for r in two], refs[(label, dtype)],
+                          dtype, card, per_solve, route)
+    # (b) Ulysses, sp 2, bucket 2048: kernel 1 at 4 × 128 on all 2048 frames.
+    _p11_check_latent("(b) Ulysses sp 2, bucket 2048", [r["b"] for r in two], refs["2048"],
+                      P11_B_DTYPE, card, per_solve, "fused_rope")
+    # (c) The ring, sp 3 (8 heads do not split over 3), bucket 384: no kernel.
+    _p11_check_latent("(c) ring sp 3, bucket 384", [r["c"] for r in three],
+                      refs[("8x128", P11_C_DTYPE)], P11_C_DTYPE, card, 0, "fused_rope")
+    # (d) DP 2: four rows, two per rank.
+    for rank, r in enumerate(two):
+        pcm, launches, wall, peak = r["d"]
+        err = int(np.abs(pcm.astype(np.int32) - refs["d"].astype(np.int32)).max())
+        log(f"[11] (d) DP 2, 4 rows at bucket 256 (2 per rank), bf16, rank {rank}: PCM vs one "
+            f"rank max {err} of 32767 (tol {P11_PCM_TOLERANCE}); launches {launches}; "
+            f"{wall:.1f} s wall, peak {peak:.2f} GB [{card}]")
+        if pcm.shape != refs["d"].shape or err > P11_PCM_TOLERANCE:
+            raise AssertionError(f"[11] (d) rank {rank}: PCM outside tolerance")
+        if launches != {"fused_rope": per_solve, "flash": 0}:
+            raise AssertionError(f"[11] (d) rank {rank}: launches {launches}")
+    # (e) Training: DP 2 and TP 2 against one rank.
+    for name in ("dp", "tp"):
+        for rank, r in enumerate(two):
+            (losses, ref_losses, rel, worst), launches, wall, peak = r["e"][name]
+            if launches != {"fused_rope": 0, "flash": 0}:
+                raise AssertionError(f"[11] (e) {name} rank {rank}: launches {launches}")
+            if not np.isfinite(losses).all():
+                raise AssertionError(f"[11] (e) {name} rank {rank}: loss {losses}")
+            if rank == 0:
+                log(f"[11] (e) {name.upper()} 2, two f32 steps (TF32 off), batch 8 × 256: loss "
+                    f"{losses[-1]:.6f} vs one rank {ref_losses[-1]:.6f}, rel {rel:.3e} (tol 1e-5); "
+                    f"worst parameter leaf {worst:.3e} of its max-abs (tol 1e-4); "
+                    f"{wall:.1f} s wall, peak {peak:.2f} GB [{card}]")
+                if not (rel <= 1e-5 and worst <= 1e-4):
+                    raise AssertionError(f"[11] (e) {name}: outside tolerance")
+    # (f) The serving loop on TP 2.
+    max_tol, mean_tol = STREAM_TOLERANCE
+    for rank, r in enumerate(two):
+        waves, launches, wall, peak, dispatches = r["f"]
+        want = {"fused_rope": per_solve * len(dispatches), "flash": 0}
+        log(f"[11] (f) MultiHostServingLoop, TP 2, {P11_F_DTYPE}, rank {rank}: "
+            f"{len(dispatches)} dispatches "
+            f"(real rows {dispatches}); launches {launches}; {wall:.1f} s wall, peak "
+            f"{peak:.2f} GB [{card}]")
+        if launches != want or sum(dispatches) != len(d["jobs"]):
+            raise AssertionError(f"[11] (f) rank {rank}: launches {launches}, want {want}")
+    for job, got, ref in zip(d["jobs"], two[0]["f"][0], refs["f"]):
+        diff = np.abs(got.astype(np.int32) - ref.astype(np.int32))
+        log(f"[11] (f) bucket {job['bucket']} chunk vs one rank: max {int(diff.max())}, mean "
+            f"{float(diff.mean()):.3f} of 32767 (tol {max_tol}, {mean_tol})")
+        if got.shape != ref.shape or diff.max() > max_tol or diff.mean() > mean_tol:
+            raise AssertionError("[11] (f) served chunk outside STREAM_TOLERANCE")
+
+    for r in two + three:
+        runs = [*r["a"].values(), r["b"], r["d"], r["f"]] if "a" in r else [r["c"]]
+        for run in runs:
+            for k in total:
+                total[k] += run[1][k]
+    log(f"[11] done in {time.perf_counter() - t_phase:.1f} s; launches over all ranks {total}. "
+        f"Ranks share one card over a host-staged gloo transport: no time here is a "
+        f"scaling number [{smi}]")
+    return total
+
+
 def main() -> int:
     try:
         import torch
@@ -1624,10 +2151,13 @@ def main() -> int:
     torch.cuda.synchronize()
     converted_launches = phase_conversion(smi)
     torch.cuda.synchronize()
+    parallel_launches = phase_parallel(cfg, smi)
+    torch.cuda.synchronize()
     launches = {
         "fused_rope": (launches["fused_rope"] + batched["fused_rope"] + rest_launches
-                       + trained_launches + converted_launches),
-        "flash": launches["flash"] + batched["flash"],
+                       + trained_launches + converted_launches
+                       + parallel_launches["fused_rope"]),
+        "flash": launches["flash"] + batched["flash"] + parallel_launches["flash"],
     }
     fused_record["launches"] = launches["fused_rope"]
     flash_record["launches"] = launches["flash"]

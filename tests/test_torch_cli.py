@@ -3,8 +3,7 @@ counterpart of ``tests/test_cli.py``; everything runs with ``device="cpu"``.
 
 Held against the JAX package: the two parsers offer the same options apart
 from the ones that are tied to the backend (``--no-pallas`` / ``--no-kernels``,
-``--device``, ``--mesh-data``, ``--mesh-model``), with equal defaults, types
-and choices; ``create_config`` gives equal values on every field the two
+``--device``), with equal defaults, types and choices; ``create_config`` gives equal values on every field the two
 ``ModelConfig`` share. Both comparisons are exact.
 """
 
@@ -25,7 +24,7 @@ from vietvoice_tts_tpu import cli as jcli
 from vietvoice_tts_tpu_torch import cli
 from vietvoice_tts_tpu_torch.cli import build_parser, create_config
 
-JAX_ONLY = {"no_pallas", "mesh_data", "mesh_model"}
+JAX_ONLY = {"no_pallas"}
 PORT_ONLY = {"no_kernels", "device"}
 
 
@@ -57,8 +56,14 @@ class TestParser:
 
     @pytest.mark.parametrize("flag", ["--mesh-data", "--mesh-model", "--no-pallas"])
     def test_flags_that_wait_for_their_module_are_not_offered(self, flag):
-        with pytest.raises(SystemExit):
-            build_parser().parse_args(["t", "o.wav", flag, "2"])
+        """``--no-pallas`` is not offered (``--no-kernels`` is); the mesh
+        flags, which waited for ``parallel/``, are offered since it came."""
+        if flag == "--no-pallas":
+            with pytest.raises(SystemExit):
+                build_parser().parse_args(["t", "o.wav", flag, "2"])
+        else:
+            args = build_parser().parse_args(["t", "o.wav", flag, "2"])
+            assert getattr(args, flag[2:].replace("-", "_")) == 2
 
 
 def _options(parser) -> dict:

@@ -655,3 +655,29 @@ def test_cuda_converted_pack_serves_through_kernel_1(cuda_device, tmp_path):
             assert rep["allclose"] and rep["mel_mae"] < 1e-4, rep
         else:
             assert rep["mel_max_abs"] <= 5e-2, rep
+
+
+# -- tensor parallelism: the row-parallel partial product ------------------------
+
+
+def test_cuda_row_parallel_product_is_float32_from_bf16_inputs(cuda_device):
+    """A row-parallel layer's partial (``models/dit.py``), at the default
+    model's FFN width split over two ranks: from bfloat16 inputs a float32
+    result within 1e-2 of the exact product (a bfloat16 result is off by up
+    to half an ulp of outputs near 100, ~0.25); with autograd following,
+    the float32 GEMM, whose gradient reaches x."""
+    from vietvoice_tts_tpu_torch.models.dit import _float32_product
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 384, 1024, generator=g).to(cuda_device, torch.bfloat16)
+    w = torch.randn(512, 1024, generator=g).to(cuda_device, torch.bfloat16)
+    exact = torch.nn.functional.linear(x.double(), w.double())
+    with torch.inference_mode():
+        got = _float32_product(x, w)
+    assert got.dtype == torch.float32 and got.shape == (2, 384, 512)
+    assert (got.double() - exact).abs().max().item() <= 1e-2
+    xg = x.clone().requires_grad_(True)
+    tracked = _float32_product(xg, w)
+    tracked.sum().backward()
+    assert (tracked.double() - exact).abs().max().item() <= 1e-2
+    assert xg.grad is not None and xg.grad.shape == x.shape

@@ -455,6 +455,7 @@ class TestConfig:
         shared = set(ours) & set(ref)
         assert len(shared) >= 40
         assert set(ours) - shared == {"device", "use_kernels"}
+        assert {"mesh_data_axis", "mesh_model_axis", "sequence_parallel"} <= shared
         for name in shared:
             a, b = ours[name], ref[name]
             if a.default_factory is not dataclasses.MISSING:

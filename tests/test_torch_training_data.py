@@ -172,8 +172,8 @@ def test_training_steps_run_without_kernels(pack_copy, tmp_path, monkeypatch):
     seen = []
     real = tloop.make_train_step
 
-    def recording(dit_cfg, train_cfg):
-        step = real(dit_cfg, train_cfg)
+    def recording(dit_cfg, train_cfg, *mesh):
+        step = real(dit_cfg, train_cfg, *mesh)
 
         def wrapped(dit, *args):
             seen.append(dit.cfg.use_kernels)
@@ -191,11 +191,14 @@ def test_training_steps_run_without_kernels(pack_copy, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("mesh", [(2, 1), (1, 4)])
 def test_mesh_axes_raise_until_parallel_is_ported(mesh, tmp_path):
-    """A (data, model) mesh, as the JAX ``train(..., mesh=)`` takes one,
-    raises before anything is loaded or written."""
+    """Mesh axes of (data, model) in the config make ``train`` build that
+    mesh; in a process with no group of that many ranks it raises, naming
+    ``torchrun``, before anything is loaded or written."""
     run = _run(checkpoint_dir=str(tmp_path / "ckpt"))
-    with pytest.raises(NotImplementedError, match="parallel"):
-        tloop.train(port_config(model_cache_dir=str(tmp_path)), TrainConfig(), run, mesh=mesh)
+    cfg = port_config(model_cache_dir=str(tmp_path), mesh_data_axis=mesh[0],
+                      mesh_model_axis=mesh[1])
+    with pytest.raises(ValueError, match="torchrun"):
+        tloop.train(cfg, TrainConfig(), run)
     assert not any(tmp_path.iterdir())
 
 
@@ -215,7 +218,7 @@ def test_entry_point_without_a_card_exits_1(monkeypatch, capsys, tmp_path):
 def test_entry_point_flags_are_the_jax_ones_without_mesh():
     opts = {a.dest for a in tmain.build_parser()._actions}
     assert opts == {"help", "manifest", "steps", "batch_size", "learning_rate",
-                    "checkpoint_dir", "model_cache_dir", "device"}
+                    "checkpoint_dir", "model_cache_dir", "device", "mesh_data", "mesh_model"}
     assert tmain.build_parser().parse_args([]).device == "cuda"
 
 

@@ -8,11 +8,17 @@ flags, and an interactive menu (launched when no args are given) with voice
 selection, reference-audio setup including a filterable sample browser with
 playback, performance/model/audio sections, and a confirmation screen
 writing to ``output/<name>.wav``. Against the JAX package's CLI:
-``--no-pallas`` is ``--no-kernels``, ``--device`` (default ``cuda``) says
-where the model runs, and ``--mesh-data`` / ``--mesh-model`` are not offered
-(meshes are not ported). Without ``--device cpu`` and without a card the CLI
+``--no-pallas`` is ``--no-kernels`` and ``--device`` (default ``cuda``) says
+where the model runs. Without ``--device cpu`` and without a card the CLI
 exits non-zero and synthesizes nothing. After a request it prints the device
 and how often each CUDA kernel was launched.
+
+``--mesh-data`` / ``--mesh-model`` above 1 run the model on a mesh of ranks
+(``parallel/``): launch one process per rank, every one with the same
+command, e.g. ``torchrun --nproc-per-node 2 -m vietvoice_tts_tpu_torch
+"Xin chào" out.wav --mesh-model 2``. Rank 0 alone writes the WAV and
+prints. Outside such a launch the CLI exits 1 with a message that names
+``torchrun``.
 """
 
 from __future__ import annotations
@@ -141,6 +147,12 @@ Interactive mode: run without arguments.
         help="Run the plain PyTorch attention instead of the CUDA kernels",
     )
     parser.add_argument(
+        "--mesh-data", type=int, default=1, help="Data-parallel mesh axis size"
+    )
+    parser.add_argument(
+        "--mesh-model", type=int, default=1, help="Model-parallel mesh axis size"
+    )
+    parser.add_argument(
         "--device",
         default="cuda",
         help="Where the model runs: cuda (default; fails without a card), "
@@ -189,6 +201,8 @@ def create_config(args: Union[argparse.Namespace, Dict[str, Any]]) -> ModelConfi
         compute_dtype=args.compute_dtype,
         max_batch_size=args.max_batch_size,
         use_kernels=not args.no_kernels,
+        mesh_data_axis=args.mesh_data,
+        mesh_model_axis=args.mesh_model,
         device=args.device,
     )
     if args.model_cache_dir:
@@ -250,15 +264,18 @@ def main() -> None:
 
     try:
         from .client import TTSApi
+        from .parallel.mesh import launch_mesh
 
         config = create_config(args)
-        api = TTSApi(config)
+        mesh = launch_mesh(args.mesh_data, args.mesh_model)
+        lead = mesh is None or mesh.rank == 0  # the rank that writes and prints
+        api = TTSApi(config, mesh=mesh)
         if args.warmup:
-            print("Warming up (running every batch and bucket shape once)...")
+            if lead:
+                print("Warming up (running every batch and bucket shape once)...")
             api.engine.warmup()
-        duration = api.synthesize_to_file(
+        request = dict(
             text=args.text,
-            output_path=args.output,
             gender=args.gender,
             group=args.group,
             area=args.area,
@@ -267,9 +284,14 @@ def main() -> None:
             reference_audio=args.reference_audio,
             reference_text=args.reference_text,
         )
-        print(f"Synthesis complete! Generation took {duration:.2f}s")
-        print(f"Output saved to: {args.output}")
-        _print_device_report(config)
+        if lead:
+            duration = api.synthesize_to_file(output_path=args.output, **request)
+        else:  # the same batches, in lockstep; rank 0 writes the file
+            api.synthesize(**request)
+        if lead:
+            print(f"Synthesis complete! Generation took {duration:.2f}s")
+            print(f"Output saved to: {args.output}")
+            _print_device_report(config)
     except Exception as e:  # noqa: BLE001 — CLI boundary
         print(f"Error: {e}", file=sys.stderr)
         sys.exit(1)

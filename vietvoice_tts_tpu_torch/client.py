@@ -21,8 +21,11 @@ from .utils.wavio import wav_bytes
 class TTSApi:
     """High-level API for VietVoice TTS on PyTorch."""
 
-    def __init__(self, config: Optional[ModelConfig] = None):
+    def __init__(self, config: Optional[ModelConfig] = None, mesh=None):
+        """``mesh`` (``parallel.make_mesh``) runs the engine on a mesh of
+        ranks; every rank then makes the same calls."""
         self.config = config or ModelConfig()
+        self._mesh = mesh
         self._engine: Optional[TTSEngine] = None
 
     def __enter__(self):
@@ -34,7 +37,7 @@ class TTSApi:
     @property
     def engine(self) -> TTSEngine:
         if self._engine is None:
-            self._engine = TTSEngine(self.config)
+            self._engine = TTSEngine(self.config, mesh=self._mesh)
         return self._engine
 
     def synthesize(

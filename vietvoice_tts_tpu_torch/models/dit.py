@@ -26,6 +26,21 @@ Same network and numerics as the JAX module, written as an ``nn.Module``:
   residual stream and the final projection are float32.
 - Text and mel share the sequence axis (F5-style): character IDs padded with
   -1 to the frame bucket are embedded through a small ConvNeXt stack.
+- Tensor parallelism (``DiTConfig.model_group``): the module holds this
+  rank's shard (``parallel/sharding.py``): ``heads/tp`` heads of the packed
+  qkv, ``1/tp`` of the FFN and text-block widths. Each column→row pair ends
+  in one all-reduce (after ``attn_out``, ``ff2`` and the text blocks'
+  ``pw2``); the row-parallel bias is added once, after it, and the AdaLN
+  gate multiplies the sum. Megatron's f and g (``parallel/comm.py``) make
+  it trainable. The attention kernels run on the local heads.
+- Sequence parallelism (``DiTConfig.seq_group``): the forward takes the
+  whole ``x`` (the sampler is unchanged), runs the residual stream on this
+  rank's ``N/sp`` frames, attends through ``parallel/sequence.py``, and
+  all-gathers the ``[B, N, n_mels]`` velocity. The conv position
+  embedding needs 15 frames on each side of the slice: every rank holds the
+  whole input, so it projects its slice with that halo and keeps its rows,
+  and no frames are exchanged. The text embedding runs on all N frames on
+  every rank, before the slice.
 
 Layouts at the public methods match the JAX functions: activations are
 ``[B, N, C]``.
@@ -35,7 +50,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List
+from typing import Any, List
 
 import numpy as np
 import torch
@@ -49,6 +64,8 @@ from ..ops.kernels.fused_rope_attention import (
     supports_shape as fused_supports_shape,
 )
 from ..ops.rope import apply_rope, rope_tables
+from ..parallel import comm
+from ..parallel.sequence import sp_attention
 
 TIME_FREQ_DIM = 256  # sinusoidal feature width for the flow time
 CONV_POS_KERNEL = 31
@@ -69,10 +86,21 @@ class DiTConfig:
     compute_dtype: torch.dtype = torch.bfloat16
     norm_dtype: torch.dtype = torch.float32
     use_kernels: bool = False
+    # Tensor parallelism: the model-axis process group (parallel/mesh.py)
+    # the weights are split over, or None.
+    model_group: Any = None
+    # Sequence parallelism: the group the frame axis is split over, or None.
+    # The weights are whole on every rank; exclusive with model_group.
+    seq_group: Any = None
 
     @property
     def head_dim(self) -> int:
         return self.dim // self.heads
+
+    @property
+    def tp(self) -> int:
+        """Tensor-parallel size (1 without a model group)."""
+        return comm.size(self.model_group)
 
 
 # ---------------------------------------------------------------------------
@@ -185,35 +213,75 @@ def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
     return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
 
 
+def column_linear(x: torch.Tensor, layer: nn.Linear, group) -> torch.Tensor:
+    """A column-parallel layer (this rank's output columns); its input
+    passes Megatron's f. Without a group, :func:`linear`."""
+    return linear(comm.copy_to_group(x, group), layer)
+
+
+def _float32_product(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """``x @ weightᵀ`` with a float32 result from x's dtype. On the card a
+    bfloat16 or float16 product is one tensor-core GEMM with a float32
+    output (``torch.mm(..., out_dtype=)``, which has no backward); where
+    autograd follows the product, and on the CPU, it is a float32 GEMM of
+    the same products, which are exact in float32."""
+    w = weight.to(x.dtype)
+    tracked = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
+    if x.is_cuda and x.dtype != torch.float32 and not tracked:
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w.t(), out_dtype=torch.float32)
+        return y.view(*x.shape[:-1], w.shape[0])
+    return F.linear(x.float(), w.float())
+
+
+def row_linear(x: torch.Tensor, layer: nn.Linear, group) -> torch.Tensor:
+    """A row-parallel layer: this rank's partial product, summed over the
+    group (Megatron's g), then the replicated bias, added once. Without a
+    group, :func:`linear`.
+
+    The partial product and the sum are float32 and the result is rounded
+    once to x's dtype, as one matmul's accumulator is. A bfloat16 partial,
+    rounded before the sum, rounds every output twice: in a bfloat16 solve
+    at small widths on the CPU that put the latent 3.7e-2 max-abs from one
+    rank's, against 0 with float32 partials."""
+    if group is None:
+        return linear(x, layer)
+    partial = _float32_product(x, layer.weight)
+    return (comm.reduce_from_group(partial, group) + layer.bias.float()).to(x.dtype)
+
+
 class TextBlock(nn.Module):
     """ConvNeXt-1D residual block on the text embedding."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, group=None):
         super().__init__()
+        self.group = group
+        inter = 2 * dim // comm.size(group)
         self.dwconv = nn.Conv1d(dim, dim, TEXT_CONV_KERNEL, groups=dim)
-        self.pw1 = nn.Linear(dim, 2 * dim)
-        self.pw2 = nn.Linear(2 * dim, dim)
+        self.pw1 = nn.Linear(dim, inter)
+        self.pw2 = nn.Linear(inter, dim)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """x: [B, N, C] float32 → float32."""
         h = dwconv(x, self.dwconv.weight, self.dwconv.bias)
         h = layernorm(h).to(dtype)
-        h = F.gelu(linear(h, self.pw1), approximate="tanh")
-        h = linear(h, self.pw2)
+        h = F.gelu(column_linear(h, self.pw1, self.group), approximate="tanh")
+        h = row_linear(h, self.pw2, self.group)
         return x + h.float()
 
 
 class DiTBlock(nn.Module):
-    """One transformer block; ``ada`` is applied outside, hoisted."""
+    """One transformer block; ``ada`` is applied outside, hoisted. Under
+    tensor parallelism it holds this rank's shard of qkv, attn_out, ff1
+    and ff2."""
 
     def __init__(self, cfg: DiTConfig):
         super().__init__()
-        d = cfg.dim
+        d, tp = cfg.dim, cfg.tp
         self.ada = nn.Linear(d, 6 * d)
-        self.qkv = nn.Linear(d, 3 * d)
-        self.attn_out = nn.Linear(d, d)
-        self.ff1 = nn.Linear(d, cfg.ff_mult * d)
-        self.ff2 = nn.Linear(cfg.ff_mult * d, d)
+        self.qkv = nn.Linear(d, 3 * d // tp)
+        self.attn_out = nn.Linear(d // tp, d)
+        self.ff1 = nn.Linear(d, cfg.ff_mult * d // tp)
+        self.ff2 = nn.Linear(cfg.ff_mult * d // tp, d)
 
 
 class DiT(nn.Module):
@@ -223,11 +291,15 @@ class DiT(nn.Module):
 
     def __init__(self, cfg: DiTConfig):
         super().__init__()
+        if cfg.model_group is not None and cfg.seq_group is not None:
+            raise ValueError("the model axis carries either weight shards or frames, not both")
+        if cfg.heads % cfg.tp:
+            raise ValueError(f"heads {cfg.heads} do not split over tensor-parallel size {cfg.tp}")
         self.cfg = cfg
         d = cfg.dim
         self.text_table = nn.Embedding(cfg.vocab_size + 1, cfg.text_dim)
         self.text_blocks = nn.ModuleList(
-            [TextBlock(cfg.text_dim) for _ in range(cfg.text_conv_layers)]
+            [TextBlock(cfg.text_dim, cfg.model_group) for _ in range(cfg.text_conv_layers)]
         )
         self.time_mlp1 = nn.Linear(TIME_FREQ_DIM, d)
         self.time_mlp2 = nn.Linear(d, d)
@@ -289,6 +361,16 @@ class DiT(nn.Module):
             )
         return self._rope_cache[key]
 
+    def _frame_slice(self, n: int) -> tuple[int, int]:
+        """This rank's frames [lo, hi) of an N-frame forward (all of them
+        without sequence parallelism)."""
+        group = self.cfg.seq_group
+        sp = comm.size(group)
+        if n % sp:
+            raise ValueError(f"frames {n} not divisible by sequence-parallel size {sp}")
+        r = comm.rank(group)
+        return r * n // sp, (r + 1) * n // sp
+
     # -- Forward -----------------------------------------------------------
 
     def forward(
@@ -306,30 +388,42 @@ class DiT(nn.Module):
         inputs that require grad)."""
         return self.forward_embedded(x, cond, self.text_embed(text_ids), t, mask)
 
-    def _attend(self, n: int):
-        """The attention route for this forward: packed qkv [B, N, 3·H·D],
-        rope tables, mask → [B, N, H·D]. Picked from the head shape alone;
-        the wrappers decide between kernel and plain version by device."""
+    def _packed_attention(self, qkv, cos, sin, mask, heads: int) -> torch.Tensor:
+        """Attention on packed qkv [B, N, 3·heads·D] → [B, N, heads·D], by
+        the route the head shape picks; the wrappers decide between kernel
+        and plain version by device."""
         cfg = self.cfg
-        heads, hd = cfg.heads, cfg.head_dim
+        b, n, _ = qkv.shape
+        hd = cfg.head_dim
         if fused_supports_shape(heads, hd, n):
             fused = (
                 fused_qkv_rope_attention if cfg.use_kernels
                 else fused_qkv_rope_attention_reference
             )
-            return lambda qkv, cos, sin, mask: fused(qkv, cos, sin, mask, heads)
+            return fused(qkv, cos, sin, mask, heads)
+        # Views into the packed projection: v reaches the kernel uncopied.
+        q, k, v = (
+            t.reshape(b, n, heads, hd).transpose(1, 2) for t in qkv.chunk(3, dim=-1)
+        )
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        out = attention(q, k, v, mask, use_kernels=cfg.use_kernels)
+        return out.transpose(1, 2).reshape(b, n, heads * hd)
 
-        def split_heads(qkv, cos, sin, mask):
-            b = qkv.shape[0]
-            # Views into the packed projection: v reaches the kernel uncopied.
-            q, k, v = (
-                t.reshape(b, n, heads, hd).transpose(1, 2) for t in qkv.chunk(3, dim=-1)
-            )
-            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-            out = attention(q, k, v, mask, use_kernels=cfg.use_kernels)
-            return out.transpose(1, 2).reshape(b, n, heads * hd)
+    def _attend(self):
+        """The attention of this forward: packed qkv of this rank's heads (and
+        frames), the whole sequence's rope tables and mask → [B, N, H·D]."""
+        cfg = self.cfg
+        heads = cfg.heads // cfg.tp
+        if cfg.seq_group is None:
+            return lambda qkv, cos, sin, mask: self._packed_attention(qkv, cos, sin, mask, heads)
 
-        return split_heads
+        def sequence_parallel(qkv, cos, sin, mask):
+            b, nl, _ = qkv.shape
+            q, k, v = (t.reshape(b, nl, heads, -1) for t in qkv.chunk(3, dim=-1))
+            out = sp_attention(q, k, v, cos, sin, mask, cfg.seq_group, self._packed_attention)
+            return out.reshape(b, nl, -1)
+
+        return sequence_parallel
 
     def forward_embedded(
         self,
@@ -355,6 +449,7 @@ class DiT(nn.Module):
         ``depth − j`` blocks."""
         cfg = self.cfg
         dtype = cfg.compute_dtype
+        tp_group = cfg.model_group
         b, n, _ = x.shape
         mask_f = mask[..., None].float()
 
@@ -362,11 +457,21 @@ class DiT(nn.Module):
         h_in = torch.cat(
             [x.float() * mask_f, cond.float() * mask_f, text_emb * mask_f], dim=-1
         ).to(dtype)
+        lo, hi = self._frame_slice(n)
+        if (lo, hi) != (0, n):
+            # Sequence parallelism: this rank's frames, projected with the
+            # halo the position conv reads on each side (zero-padded only
+            # at the sequence's own ends, as without the split).
+            halo = CONV_POS_KERNEL // 2
+            a, z = max(0, lo - halo), min(n, hi + halo)
+            h_in, mask_f = h_in[:, a:z], mask_f[:, a:z]
         h = linear(h_in, self.input_proj)  # [B, N, dim] compute dtype
 
         # Convolutional position embedding (depthwise → Mish → pointwise).
         pos = F.mish(dwconv(h, self.conv_pos_dw.weight, self.conv_pos_dw.bias))
         h = (h + linear(pos, self.conv_pos_pw)) * mask_f.to(dtype)
+        if (lo, hi) != (0, n):
+            h = h[:, lo - a : hi - a]
 
         if time_mod is None:
             mods, fmod = self.time_modulations(t)
@@ -375,7 +480,7 @@ class DiT(nn.Module):
             mods, fmod = time_mod
 
         cos, sin = self._rope(n, x.device)
-        attend = self._attend(n)
+        attend = self._attend()
 
         def modulated_norm(h, sc, sh):
             # sc/sh: [B', dim] f32; B' = 1 broadcasts over the batch.
@@ -388,14 +493,14 @@ class DiT(nn.Module):
                 blk = self.blocks[i]
                 sh_a, sc_a, g_a, sh_f, sc_f, g_f = mods[i].chunk(6, dim=-1)
                 u = modulated_norm(h, sc_a, sh_a)
-                qkv = linear(u, blk.qkv)
+                qkv = column_linear(u, blk.qkv, tp_group)
                 attn = attend(qkv, cos, sin, mask)
-                attn = linear(attn, blk.attn_out)
+                attn = row_linear(attn, blk.attn_out, tp_group)
                 h = h + g_a[:, None].to(dtype) * attn
 
                 u = modulated_norm(h, sc_f, sh_f)
-                f = F.gelu(linear(u, blk.ff1), approximate="tanh")
-                f = linear(f, blk.ff2)
+                f = F.gelu(column_linear(u, blk.ff1, tp_group), approximate="tanh")
+                f = row_linear(f, blk.ff2, tp_group)
                 h = h + g_f[:, None].to(dtype) * f
             return h
 
@@ -421,6 +526,7 @@ class DiT(nn.Module):
         sh, sc = fmod.chunk(2, dim=-1)
         h = layernorm(h) * (1.0 + sc[:, None]) + sh[:, None]
         out = F.linear(h, self.final_proj.weight.float(), self.final_proj.bias.float())
+        out = comm.all_gather(out, cfg.seq_group, dim=1)
         out = torch.where(mask[..., None], out, torch.zeros((), device=out.device))
         if return_deep_state:
             return out, deep_out

@@ -5,19 +5,26 @@ the compute dtype, LayerScale residual), then an iSTFT head: a linear layer
 predicts per-frame log-magnitude and phase, the inverse real DFT is one
 basis matmul, and ``n_fft/hop`` strided overlap-adds rebuild the waveform.
 Batched ``[B, N, …]``; the output is a ``[B, N·hop]`` float32 waveform.
+
+Under tensor parallelism (``VocoderConfig.model_group``) each block holds
+this rank's ``1/tp`` of the intermediate width: ``pw1`` is column-parallel,
+``pw2`` row-parallel with one all-reduce, its bias added once after it and
+LayerScale's ``gamma`` after that. The head stays whole on every rank.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from functools import lru_cache
+from typing import Any
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .dit import _as_rng, _dense, dwconv
+from ..parallel import comm
+from .dit import _as_rng, _dense, column_linear, dwconv, row_linear
 
 DW_KERNEL = 7
 LAYERSCALE_INIT = 1e-6
@@ -34,6 +41,8 @@ class VocoderConfig:
     n_fft: int = 1024
     hop_length: int = 256
     compute_dtype: torch.dtype = torch.float32
+    # Tensor parallelism: the model-axis process group, or None.
+    model_group: Any = None
 
     @property
     def n_freqs(self) -> int:
@@ -170,8 +179,10 @@ def istft_overlap_add(
 
 
 class VocoderBlock(nn.Module):
-    def __init__(self, dim: int, inter: int):
+    def __init__(self, dim: int, inter: int, group=None):
         super().__init__()
+        self.group = group
+        inter //= comm.size(group)
         self.dwconv = nn.Conv1d(dim, dim, DW_KERNEL, groups=dim)
         self.norm = nn.LayerNorm(dim, eps=LN_EPS)
         self.pw1 = nn.Linear(dim, inter)
@@ -182,9 +193,8 @@ class VocoderBlock(nn.Module):
         """x: [B, N, C] float32 → float32."""
         h = dwconv(x, self.dwconv.weight, self.dwconv.bias)
         h = self.norm(h).to(dtype)
-        h = F.gelu(F.linear(h, self.pw1.weight.to(dtype), self.pw1.bias.to(dtype)),
-                   approximate="tanh")
-        h = F.linear(h, self.pw2.weight.to(dtype), self.pw2.bias.to(dtype))
+        h = F.gelu(column_linear(h, self.pw1, self.group), approximate="tanh")
+        h = row_linear(h, self.pw2, self.group)
         return x + self.gamma * h.float()
 
 
@@ -198,7 +208,8 @@ class Vocoder(nn.Module):
         self.embed = nn.Conv1d(cfg.n_mels, d, DW_KERNEL)
         self.norm_in = nn.LayerNorm(d, eps=LN_EPS)
         self.blocks = nn.ModuleList(
-            [VocoderBlock(d, cfg.intermediate_dim) for _ in range(cfg.num_layers)]
+            [VocoderBlock(d, cfg.intermediate_dim, cfg.model_group)
+             for _ in range(cfg.num_layers)]
         )
         self.norm_out = nn.LayerNorm(d, eps=LN_EPS)
         self.head = nn.Linear(d, 2 * cfg.n_freqs)

@@ -16,7 +16,6 @@ from __future__ import annotations
 from typing import List
 
 import numpy as np
-from scipy.signal import resample_poly
 
 from ..utils.logging import get_logger
 from ..utils.wavio import read_wav, write_wav
@@ -68,6 +67,10 @@ class AudioProcessor:
         mono = samples.mean(axis=1)
         if sr != sample_rate:
             from math import gcd
+
+            # Imported here: scipy.signal takes seconds to import, and every
+            # rank of a mesh imports this module.
+            from scipy.signal import resample_poly
 
             g = gcd(sr, sample_rate)
             mono = resample_poly(mono, sample_rate // g, sr // g).astype(np.float32)

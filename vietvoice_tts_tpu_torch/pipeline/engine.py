@@ -9,7 +9,9 @@ run through :class:`EngineCore`. In direct mode they go as batches for
 ``synthesize`` and as single rows, one after the other, for
 ``synthesize_streaming``; with ``enable_micro_batching`` every chunk is a job
 of the shared :class:`~..serving.batcher.MicroBatcher`, which batches the
-chunks of concurrent requests together (meshes are not ported yet).
+chunks of concurrent requests together. Under a mesh (``mesh=``) every
+rank runs the same ``synthesize`` call and dispatches the same batches; a
+bucket's chunks go in batches that the data axis divides.
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ class ChunkPlan:
 class TTSEngine:
     """Main TTS engine."""
 
-    def __init__(self, config: Optional[ModelConfig] = None):
+    def __init__(self, config: Optional[ModelConfig] = None, mesh=None):
         self.config = config or ModelConfig()
         self.model_session_manager = ModelSessionManager(self.config)
         self.model_session_manager.load_models()
@@ -56,10 +58,12 @@ class TTSEngine:
 
         self.text_processor = TextProcessor(self.model_session_manager.vocab_path)
         self.audio_processor = AudioProcessor()
+        self.mesh = mesh
         self.engine_core = EngineCore(
             self.config,
             self.model_session_manager.params,
             self.model_session_manager.vocab_size,
+            mesh=mesh,
         )
         # Host-side cache of decoded reference audio (int16 @ sample_rate),
         # keyed by path or content hash.
@@ -275,8 +279,13 @@ class TTSEngine:
     # -- Batched execution ---------------------------------------------------
 
     def _batch_sizes(self, n: int) -> List[int]:
-        """Split n chunks into device batches ≤ max_batch_size."""
+        """Split n chunks into device batches ≤ max_batch_size, a multiple of
+        the data-parallel axis when a mesh is active (``EngineCore`` pads the
+        last one to it)."""
         step = self.config.max_batch_size
+        if self.mesh is not None:
+            dp = self.mesh.data
+            step = max(step - step % dp, dp)
         sizes = []
         while n > 0:
             sizes.append(min(step, n))

@@ -19,6 +19,18 @@ waveform and runs no mel front end (``_cond_handles``).
 
 Batches are queued by one host thread at a time (``_QUEUE_LOCK``): the
 micro-batcher's dispatcher thread and a direct caller may share a core.
+
+Under a mesh (``parallel/mesh.py``; JAX ``engine_core.py:61-93,173-189``)
+every rank of the mesh runs this core on the same batches, in lockstep:
+
+- the data axis splits each batch's rows (padded to a multiple of it) over
+  the data group; each rank runs its rows, and an all-gather gives every
+  rank the whole batch's PCM (or latent);
+- the model axis carries tensor parallelism (each rank loads the whole pack
+  and keeps its shard, ``parallel/sharding.py``), or, with
+  ``config.sequence_parallel``, the DiT's frames (``parallel/sequence.py``;
+  the weights stay whole);
+- the voice-conditioning cache is off (JAX ``:319``).
 """
 
 from __future__ import annotations
@@ -37,6 +49,8 @@ from ..models.params import from_jax_tree
 from ..models.sampler import SamplerConfig, flow_matching_sample
 from ..models.vocoder import Vocoder, VocoderConfig
 from ..ops.stft import MelFrontend
+from ..parallel import comm
+from ..parallel.sharding import shard_batch, shard_params
 from ..utils.logging import StageTimer, get_logger
 
 log = get_logger("engine_core")
@@ -70,10 +84,14 @@ def _build(module: torch.nn.Module, state: dict, device: torch.device) -> torch.
 class EngineCore:
     """Owns the device modules and runs padded chunk batches."""
 
-    def __init__(self, config: ModelConfig, params, vocab_size: int):
+    def __init__(self, config: ModelConfig, params, vocab_size: int, mesh=None):
         self.config = config
         self.device = torch.device(config.device)
         self.vocab_size = vocab_size
+        self.mesh = mesh
+        model_group = mesh.model_group if mesh is not None else None
+        tp_group = None if config.sequence_parallel else model_group
+        seq_group = model_group if config.sequence_parallel else None
         dtype = getattr(torch, config.compute_dtype)
         # float32 is the parity mode: its batches run with TF32 off.
         strict = self.device.type == "cuda" and dtype == torch.float32
@@ -90,6 +108,8 @@ class EngineCore:
             compute_dtype=dtype,
             norm_dtype=getattr(torch, config.norm_dtype),
             use_kernels=config.use_kernels,
+            model_group=tp_group,
+            seq_group=seq_group,
         )
         self.voc_cfg = VocoderConfig(
             dim=config.vocoder_dim,
@@ -99,6 +119,7 @@ class EngineCore:
             n_fft=config.n_fft,
             hop_length=config.hop_length,
             compute_dtype=dtype,
+            model_group=tp_group,
         )
         self.sampler_cfg = SamplerConfig(
             nfe_step=config.nfe_step,
@@ -108,6 +129,8 @@ class EngineCore:
             deep_cache_interval=config.nfe_deep_cache_interval,
             deep_cache_blocks=config.nfe_deep_cache_blocks,
         )
+        if tp_group is not None:
+            params = shard_params(params, mesh, self.dit_cfg, self.voc_cfg)
         dit_state, voc_state = from_jax_tree(params, dtype)
         # Modules are built on the meta device: the pack supplies every
         # weight, so random initialization would be wasted work.
@@ -185,7 +208,7 @@ class EngineCore:
 
     def _cond_eligible(self, ref_len: np.ndarray, n_frames: int) -> bool:
         """Whether a batch can take its conditioning from the cache."""
-        if not self.config.voice_cond_cache:
+        if self.mesh is not None or not self.config.voice_cond_cache:
             return False
         window = min(self._cond_cap_frames, n_frames)
         return not (np.asarray(ref_len) + self._cond_margin > window).any()
@@ -237,13 +260,46 @@ class EngineCore:
             return torch.nn.functional.pad(mel, (0, 0, 0, n_frames - r))
         return mel[:, :n_frames]
 
+    # -- The data axis -------------------------------------------------------
+
+    def _local_rows(self, wave, ref_len, text_ids, total_len, seed, x0=None):
+        """This rank's rows of a batch: the batch padded to a multiple of the
+        data axis (padding rows as the serving loop pads: no reference, one
+        frame, no text) and split over it. Without a mesh, the batch."""
+        b = wave.shape[0]
+        arrays = [
+            np.asarray(wave, np.float32),
+            np.asarray(ref_len),
+            np.asarray(text_ids),
+            np.asarray(total_len),
+            np.broadcast_to(np.asarray(seed, np.int64), (b,)),
+        ] + ([] if x0 is None else [np.asarray(x0, np.float32)])
+        if self.mesh is None or self.mesh.data == 1:
+            return arrays
+        pad = -b % self.mesh.data
+        fills = (0.0, 0, -1, 1, 0, 0.0)
+        arrays = [
+            np.concatenate([a, np.full((pad,) + a.shape[1:], fill, a.dtype)])
+            for a, fill in zip(arrays, fills)
+        ]
+        return list(shard_batch(self.mesh, *arrays))
+
+    def _all_rows(self, t: torch.Tensor, b: int) -> torch.Tensor:
+        """The whole batch of a per-rank result: gathered over the data
+        group, padding rows dropped."""
+        group = self.mesh.data_group if self.mesh is not None else None
+        return comm.all_gather(t, group, dim=0)[:b]
+
     # -- Public batch API ----------------------------------------------------
 
     def _pcm_batch(self, wave, ref_len, text_ids, total_len, seed) -> torch.Tensor:
         """Queue one padded batch on the current stream → int16 PCM on the
         device (not yet waited for)."""
         b = wave.shape[0]
-        row_seeds = np.broadcast_to(np.asarray(seed, np.int64), (b,)).tolist()
+        wave, ref_len, text_ids, total_len, seeds = self._local_rows(
+            wave, ref_len, text_ids, total_len, seed
+        )
+        row_seeds = seeds.tolist()
         with _QUEUE_LOCK, self._numerics():
             mel = self._mel(np.asarray(wave), np.asarray(ref_len))
             ref_t, ids_t, tot_t = (
@@ -252,7 +308,7 @@ class EngineCore:
             mel, is_ref, mask, latent = self._sample_latent(
                 mel, ref_t, ids_t, tot_t, row_seeds, None
             )
-            return self._finish_waveform(mel, is_ref, mask, latent)
+            return self._all_rows(self._finish_waveform(mel, is_ref, mask, latent), b)
 
     @torch.inference_mode()
     def synthesize_batch(
@@ -330,10 +386,11 @@ class EngineCore:
         two implementations integrate the same ODE. Returns the raw sampler
         output, [B, N, n_mels] float32, zeroed outside the valid mask."""
         b = wave.shape[0]
-        row_seeds = np.broadcast_to(np.asarray(seed, np.int64), (b,)).tolist()
-        x0_t = None
-        if x0 is not None:
-            x0_t = torch.as_tensor(np.asarray(x0, np.float32)).to(self.device)
+        wave, ref_len, text_ids, total_len, seeds, *x0 = self._local_rows(
+            wave, ref_len, text_ids, total_len, seed, x0
+        )
+        row_seeds = seeds.tolist()
+        x0_t = torch.as_tensor(x0[0]).to(self.device) if x0 else None
         with _QUEUE_LOCK, self._numerics(), self.timer.stage("mel_latent"):
             # Always the waveform route: the comparison wants the front end.
             mel = self.frontend(self._to_device(wave, np.float32))
@@ -344,7 +401,7 @@ class EngineCore:
                 mel, ref_t, ids_t, tot_t, row_seeds, x0_t
             )
             latent = torch.where(mask[..., None], latent, torch.zeros((), device=self.device))
-            return latent.cpu().numpy()
+            return self._all_rows(latent, b).cpu().numpy()
 
     def warmup(self, batches=(1,), buckets=None, fallback_batches=(1,)) -> None:
         """Run every (batch, bucket) shape once, ahead of the first request.

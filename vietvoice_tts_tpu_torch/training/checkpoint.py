@@ -17,6 +17,13 @@ Which calls save and which checkpoints stay are orbax's rules (orbax 0.11,
   exists, which raises (orbax: ``StepAlreadyExistsError``);
 - the latest step is the last one saved (steps found on disk count in step
   order); past ``max_to_keep`` the earliest-saved checkpoint is deleted.
+
+On a mesh every rank keeps the same record of saved steps and only the
+writer (rank 0) writes (``writer=``). A checkpoint always holds the whole
+model: under tensor parallelism :func:`whole_state` gathers the shards
+before a save (every rank of the model group takes part), and
+:func:`shard_state` cuts a restored checkpoint to this rank's shard, so a
+checkpoint written on a mesh resumes on one device and the other way round.
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ from typing import Optional
 
 import torch
 
+from ..models.params import dit_state, to_jax_tree
+from ..parallel.sharding import gather_tree, param_pspecs, shard_tree
 from ..runtime.serialization import save_params
 from ..utils.logging import get_logger
 
@@ -50,9 +59,16 @@ def _to_cpu(obj):
 class CheckpointManager:
     """Saves and restores (model, optimizer, step) under ``directory``."""
 
-    def __init__(self, directory: str | Path, max_to_keep: int = 3, save_interval_steps: int = 1000):
+    def __init__(
+        self,
+        directory: str | Path,
+        max_to_keep: int = 3,
+        save_interval_steps: int = 1000,
+        writer: bool = True,
+    ):
         self.directory = Path(directory).absolute()
         self.directory.mkdir(parents=True, exist_ok=True)
+        self.writer = writer
         self.max_to_keep = max_to_keep
         self.save_interval_steps = save_interval_steps
         # Saved steps, oldest save first.
@@ -74,21 +90,29 @@ class CheckpointManager:
         above say so; returns whether it saved."""
         if not force and not self.should_save(step):
             return False
+        self.save_state(step, model.state_dict(), optimizer.state_dict())
+        return True
+
+    def save_state(self, step: int, model_state: dict, optimizer_state: dict) -> None:
+        """Write the state dicts at ``step`` (the writer only; every rank
+        records the step)."""
         if step in self._steps:
             raise FileExistsError(f"checkpoint step {step} already exists in {self.directory}")
-        payload = {
-            "model": _to_cpu(model.state_dict()),
-            "optimizer": _to_cpu(optimizer.state_dict()),
-            "step": int(step),
-        }
-        tmp = self.directory / f".{step}.pt.tmp"
-        torch.save(payload, tmp)
-        os.replace(tmp, self._path(step))
+        if self.writer:
+            payload = {
+                "model": _to_cpu(model_state),
+                "optimizer": _to_cpu(optimizer_state),
+                "step": int(step),
+            }
+            tmp = self.directory / f".{step}.pt.tmp"
+            torch.save(payload, tmp)
+            os.replace(tmp, self._path(step))
         self._steps.append(step)
         while len(self._steps) > self.max_to_keep:
-            self._path(self._steps.pop(0)).unlink(missing_ok=True)
+            old = self._steps.pop(0)
+            if self.writer:
+                self._path(old).unlink(missing_ok=True)
         log.info("Saved checkpoint at step %d → %s", step, self.directory)
-        return True
 
     def all_steps(self) -> list[int]:
         return list(self._steps)
@@ -117,3 +141,44 @@ class CheckpointManager:
 
     def close(self) -> None:
         """Nothing to wait for: every save is written before it returns."""
+
+
+def _each_tree(dit, model_state: dict, optimizer_state: dict, fn):
+    """(model state, optimizer state) with ``fn`` applied to the DiT-shaped
+    pack tree of the weights and of each Adam moment."""
+    names = [n for n, _ in dit.named_parameters()]
+    model = dit_state(fn(to_jax_tree(model_state)), torch.float32)
+    state = {i: dict(st) for i, st in optimizer_state["state"].items()}
+    for key in ("exp_avg", "exp_avg_sq"):
+        if state:
+            moved = dit_state(
+                fn(to_jax_tree({names[i]: st[key] for i, st in state.items()})), torch.float32
+            )
+            for i, st in state.items():
+                st[key] = moved[names[i]]
+    return model, {"state": state, "param_groups": optimizer_state["param_groups"]}
+
+
+def whole_state(dit, optimizer, model_group=None):
+    """The whole model's (DiT state dict, optimizer state dict) from this
+    rank's tensor-parallel shard; every rank of ``model_group`` calls it
+    (all-gathers). Without a group, the module's and optimizer's own."""
+    if model_group is None:
+        return dit.state_dict(), optimizer.state_dict()
+    specs = param_pspecs(dit.cfg, None)["dit"]
+    return _each_tree(
+        dit, dit.state_dict(), optimizer.state_dict(),
+        lambda tree: gather_tree(tree, specs, model_group),
+    )
+
+
+def shard_state(dit, model_state: dict, optimizer_state: dict, mesh=None):
+    """This rank's shard of a whole-model checkpoint, for ``dit`` built on
+    ``mesh``'s model axis (unchanged without tensor parallelism)."""
+    if mesh is None or dit.cfg.model_group is None:
+        return model_state, optimizer_state
+    specs = param_pspecs(dit.cfg, None)["dit"]
+    return _each_tree(
+        dit, model_state, optimizer_state,
+        lambda tree: shard_tree(tree, specs, mesh.model_index, mesh.model),
+    )

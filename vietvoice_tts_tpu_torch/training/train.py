@@ -23,6 +23,16 @@ Differences from the JAX module, none in the arithmetic:
 - The DiT runs its plain attention (``use_kernels=False``), as the JAX
   trainer runs XLA (``loop.py:75``): neither CUDA kernel has a backward.
 
+On a mesh (``make_train_step(..., mesh=)``), what GSPMD does for the JAX
+step is written out: every rank takes the same global batch and the same
+global draws and keeps its rows of the data axis; the loss's numerator and
+denominator are each summed over the data group (averaging per-rank losses
+is wrong when ranks hold different numbers of scored frames); the gradients
+are summed over the data group; tensor parallelism shards the DiT
+(``DiTConfig.model_group``, Megatron's f and g in its layers), and the
+global-norm clip sums the squares of each sharded leaf over the model group
+once and of each replicated leaf once, so every rank clips by the same norm.
+
 Mixed precision: ``compute_dtype="bfloat16"`` builds the DiT with bfloat16
 compute while its parameters, the master weights, and the Adam moments stay
 float32; ``linear`` casts each weight per use, so gradients come out
@@ -41,6 +51,8 @@ import torch
 
 from ..models.dit import DiT, DiTConfig
 from ..models.params import dit_state
+from ..parallel import comm
+from ..parallel.sharding import shard_batch
 from ..runtime.engine_core import _true_float32
 
 ADAM_BETAS = (0.9, 0.999)
@@ -77,6 +89,9 @@ class Draws:
 
     def to(self, device) -> "Draws":
         return Draws(*(getattr(self, f.name).to(device) for f in dataclasses.fields(self)))
+
+    def rows(self, lo: int, hi: int) -> "Draws":
+        return Draws(*(getattr(self, f.name)[lo:hi] for f in dataclasses.fields(self)))
 
 
 def draw(generator: torch.Generator, b: int, n: int, n_mels: int, cfg: TrainConfig) -> Draws:
@@ -126,17 +141,22 @@ def flow_inputs(mel, text_ids, lengths, draws: Draws) -> FlowInputs:
     return FlowInputs(xt, cond, text_ids, valid, in_span & valid, x1 - draws.x0)
 
 
-def flow_matching_loss(dit: DiT, mel, text_ids, lengths, draws: Draws):
+def flow_matching_loss(dit: DiT, mel, text_ids, lengths, draws: Draws, data_group=None):
     """Masked flow-matching MSE, a scalar float32 tensor: the squared error
     of the predicted velocity on the infill span's frames, summed, over
     (span frames × n_mels), times n_mels, as the JAX loss has it. The JAX
-    function's ``train_cfg`` is in ``draws`` here (span fractions, dropout)."""
+    function's ``train_cfg`` is in ``draws`` here (span fractions, dropout).
+
+    With a ``data_group`` the rows are this rank's share of the batch and
+    the denominator is summed over the group: the result is this rank's
+    share of the global loss, and the group's shares sum to it."""
     m = mel.shape[-1]
     f = flow_inputs(mel, text_ids, lengths, draws)
     v_pred = dit(f.xt, f.cond, f.text_ids, draws.t, f.valid)
     err = (v_pred - f.v_target) ** 2
     w = f.infill[..., None].float()
-    return torch.sum(err * w) / torch.clamp(torch.sum(w) * m, min=1.0) * m
+    den = comm.all_reduce(torch.sum(w) * m, data_group)
+    return torch.sum(err * w) / torch.clamp(den, min=1.0) * m
 
 
 def learning_rate(count: int, cfg: TrainConfig) -> float:
@@ -152,13 +172,27 @@ def learning_rate(count: int, cfg: TrainConfig) -> float:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: list, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(
+    grads: list, max_norm: float, sharded: list | None = None, model_group=None
+) -> torch.Tensor:
     """optax's ``clip_by_global_norm``, in place: with ‖g‖ = √(Σ ‖leaf‖²),
     every leaf stays as it is if ‖g‖ < max_norm, else becomes g / ‖g‖ ·
     max_norm. Returns ‖g‖ (0-dim, float32). A few multi-tensor launches for
     all leaves, and no host sync: the test runs on the device, and a kept
-    leaf is divided and multiplied by exactly 1."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    leaf is divided and multiplied by exactly 1.
+
+    Under tensor parallelism ``sharded[i]`` says whether leaf i is this
+    rank's shard of a leaf split over ``model_group``: its squares are
+    summed over the group, a replicated leaf's are counted once."""
+    norms = torch.stack(torch._foreach_norm(grads))
+    if model_group is None:
+        norm = torch.linalg.vector_norm(norms)
+    else:
+        split = torch.tensor(sharded, dtype=norms.dtype).to(norms.device)
+        sq = norms.square()
+        norm = torch.sqrt(
+            comm.all_reduce((sq * split).sum(), model_group) + (sq * (1.0 - split)).sum()
+        )
     keep = norm < max_norm
     one = torch.ones((), device=norm.device)
     torch._foreach_div_(grads, torch.where(keep, one, norm))
@@ -234,11 +268,14 @@ def update_count(opt: torch.optim.Optimizer) -> int:
     return 0
 
 
-def apply_update(opt: torch.optim.Optimizer, cfg: TrainConfig) -> None:
+def apply_update(
+    opt: torch.optim.Optimizer, cfg: TrainConfig, sharded: list | None = None, model_group=None
+) -> None:
     """The optax chain's update on gradients already in ``.grad``: clip by
-    global norm, then AdamW at the schedule's rate for this update count."""
+    global norm, then AdamW at the schedule's rate for this update count.
+    ``sharded`` / ``model_group``: see :func:`clip_by_global_norm`."""
     params = [p for group in opt.param_groups for p in group["params"]]
-    clip_by_global_norm([p.grad for p in params], cfg.max_grad_norm)
+    clip_by_global_norm([p.grad for p in params], cfg.max_grad_norm, sharded, model_group)
     for group in opt.param_groups:
         group["lr"] = learning_rate(update_count(opt), cfg)
     opt.step()
@@ -262,21 +299,51 @@ def init_train_state(tree: dict, dit_cfg: DiTConfig, train_cfg: TrainConfig, dev
     return dit, make_optimizer(dit.parameters(), train_cfg)
 
 
-def make_train_step(dit_cfg: DiTConfig, train_cfg: TrainConfig):
+def sharded_leaves(dit: DiT) -> list:
+    """For each parameter of ``dit`` (in ``parameters()`` order), whether it
+    is a tensor-parallel shard: its shape differs from the whole model's."""
+    if dit.cfg.model_group is None:
+        return [False] * len(list(dit.parameters()))
+    with torch.device("meta"):
+        whole = DiT(dataclasses.replace(dit.cfg, model_group=None))
+    shapes = dict((n, p.shape) for n, p in whole.named_parameters())
+    return [p.shape != shapes[n] for n, p in dit.named_parameters()]
+
+
+def make_train_step(dit_cfg: DiTConfig, train_cfg: TrainConfig, mesh=None):
     """Build ``step(dit, opt, draws, mel, text_ids, lengths) → loss``: one
     forward and backward of :func:`flow_matching_loss` and one update of
-    ``opt``. ``dit`` must be built as :func:`init_train_state` builds it."""
+    ``opt``. ``dit`` must be built as :func:`init_train_state` builds it.
+
+    On a ``mesh`` every rank passes the same global batch and draws; the
+    step keeps this rank's rows of the data axis, sums the gradients over
+    the data group and returns the global loss."""
     want = train_dit_config(dit_cfg, train_cfg)
     numerics = _true_float32 if train_cfg.compute_dtype == "float32" else contextlib.nullcontext
+    data_group = mesh.data_group if mesh is not None else None
+    sharded = None
 
     def step(dit: DiT, opt, draws: Draws, mel, text_ids, lengths) -> torch.Tensor:
+        nonlocal sharded
         if dit.cfg != want:
             raise ValueError(f"the DiT was built with {dit.cfg}, this step trains {want}")
+        if data_group is not None:
+            mel, text_ids, lengths = shard_batch(mesh, mel, text_ids, lengths)
+            rows = mel.shape[0]
+            draws = draws.rows(mesh.data_index * rows, (mesh.data_index + 1) * rows)
+        if sharded is None:
+            sharded = sharded_leaves(dit)
         with numerics():
             opt.zero_grad(set_to_none=True)
-            loss = flow_matching_loss(dit, mel, text_ids, lengths, draws)
+            loss = flow_matching_loss(dit, mel, text_ids, lengths, draws, data_group)
             loss.backward()
-            apply_update(opt, train_cfg)
+            if data_group is not None:
+                grads = [p.grad for p in dit.parameters()]
+                flat = comm.all_reduce(torch._utils._flatten_dense_tensors(grads), data_group)
+                for g, total in zip(grads, torch._utils._unflatten_dense_tensors(flat, grads)):
+                    g.copy_(total)
+                loss = comm.all_reduce(loss.detach(), data_group)
+            apply_update(opt, train_cfg, sharded, dit.cfg.model_group)
         return loss.detach()
 
     return step
