@@ -122,10 +122,37 @@ check raises):
     card. The ranks' collectives are staged through host memory: no time
     of this phase is a scaling number.
 
-Phases 2-4 and 10 (a) hold each kernel against its plain version; the main
-path whose launches the kernels' record counts is every serving request of
-phases 5-11 (counters set to 0 just before, read just after; in phase 11
-each rank counts its own, and the record sums them).
+12. The golden harness's sweeps (``golden.py`` in the package) on 10 (b)'s
+    converted pack (16 × 64, 22 layers, NFE 32, kernel 1): (a)
+    ``precision_drift`` at the JAX harness's buckets 384, 448, 512, 704 —
+    per bucket a float32 solve (TF32 off) and a bf16 one, mel MAE, max-abs
+    and relative MAE logged, a breach of 5e-2 reported and not gated —
+    with exactly 8 × 682 kernel-1 launches; then the sweeps' reference
+    solve below (bucket 448) with kernel 1 and without, in float32 within
+    1e-2 max-abs (the BASELINE mel gate at full depth) and in bf16 within
+    MEL_TOLERANCE, each bf16 latent also against the float32 one (kernel or
+    bf16 arithmetic: which one drifts); (b) ``deep_cache_sweep`` at its default
+    settings (1, 7), (2, 7), (2, 11), (3, 7), bf16, one untimed and two
+    timed solves each, at bucket 448 from the pack's reference clip, the
+    golden text and seeded noise, against the port's own float32 exact
+    latent (so ``mel_mae_vs_onnx`` there is "vs float32 exact"): exactly
+    3 × Σ 22·⌈31/r⌉ + j·(31 − ⌈31/r⌉) = 6,114 launches, which proves the
+    shallow evaluations skip blocks; (c) ``cfg_cache_sweep`` 1, 2, 4 alike:
+    682 launches a solve at every k (a cond-only evaluation is still one
+    launch a block), 6,138; (d) ``python -m vietvoice_tts_tpu_torch.golden
+    --cfg-cache-sweep 1,2`` on 10 (a)'s depth-2 pack and its ONNX reference
+    side (one JSON line, k=1 within the f32 golden gate), and
+    ``--deep-cache-sweep 2:1`` exits 2 (no exact baseline); (e) the bf16
+    settings of (b) and (c) on one core, timed over five rounds
+    in an order rotated each round (medians), then one solve each under
+    ``torch.profiler``: its device kernel time, and the device's idle share
+    of the median — 7 × 3,402 = 23,814 launches.
+
+Phases 2-4, 10 (a) and 12 (a) hold each kernel against its plain version;
+the main path whose launches the kernels' record counts is every serving
+request of phases 5-11 and every solve of phase 12 (counters set to 0 just
+before, read just after; in phase 11 each rank counts its own, and the
+record sums them).
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``. Weights are random, made from a seed, and
@@ -137,6 +164,7 @@ from __future__ import annotations
 import asyncio
 import concurrent.futures
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -159,9 +187,11 @@ TRAIN_WORK = WORK / "train"  # a copy of the seeded pack, trained and served by 
 # buckets; 8×128 is the default model, 16×64 a converted F5 model; 448 is
 # the batch-1 latency shape, 437 an N that is not a multiple of 8, and
 # B = 6 at 2048 the long text's three chunks as one blocking batch. The
-# last three are a rank's heads in phase 11: 8×128 and 16×64 split over
+# next three are a rank's heads in phase 11: 8×128 and 16×64 split over
 # tensor parallelism 2 at bucket 384, and Ulysses 2's 4 heads on the whole
-# 2048 frames.
+# 2048 frames. The last four are phase 12's at 16×64: the precision_drift
+# buckets 384, 448 and 704 (448 and 704 end on a half-empty 128-row query
+# block), and batch 1 at 448, the CFG cache's cond-only evaluations.
 KERNEL_SHAPES = [
     (2, 512, 8, 128),
     (2, 512, 16, 64),
@@ -173,6 +203,10 @@ KERNEL_SHAPES = [
     (2, 384, 4, 128),
     (2, 384, 8, 64),
     (2, 2048, 4, 128),
+    (2, 384, 16, 64),
+    (2, 448, 16, 64),
+    (2, 704, 16, 64),
+    (1, 448, 16, 64),
 ]
 LATENCY_SHAPE = (2, 448, 8, 128)
 # Phase-3 shapes of flash_attention, (B, H, N, D): 32×32 is the default
@@ -225,6 +259,9 @@ STREAM_TOLERANCE = (64, 2.0)
 # rehearsal's numpy reference side is what costs, so it is cut in depth and
 # steps; the served pack has the whole depth.
 F5_WORK = WORK / "f5"
+F5_PACK = F5_WORK / "full" / "packs" / "vietvoice-tpu-v1"  # phase 10 (b)'s, served by 12
+REHEARSAL_PACK = F5_WORK / "rehearsal" / "pack"
+REHEARSAL_REF = F5_WORK / "rehearsal" / "ref.npz"  # 10 (a)'s reference side, for 12 (d)
 REHEARSAL_DEPTH, REHEARSAL_NFE = 2, 8
 GOLDEN_F32 = (1e-4, 1e-2)  # mel MAE, allclose atol: the golden gate in float32
 GOLDEN_BF16_MAX = 5e-2  # the port's bf16 bound (MEL_TOLERANCE)
@@ -1359,7 +1396,7 @@ def _f5_rehearsal(smi: str) -> None:
         f"({time.perf_counter() - t0:.1f} s)")
     if not report["ok"] or route.get("kernel") != 1:
         raise AssertionError(f"preflight: {report['blockers'][:5]}, route {route}")
-    pack = root / "pack"
+    pack = REHEARSAL_PACK
     t0 = time.perf_counter()
     conv = convert_reference_tarball(tar, pack, name_map=name_map)
     weights = conv["weights"]
@@ -1372,6 +1409,8 @@ def _f5_rehearsal(smi: str) -> None:
     log(f"[10] (a) reference side (numpy evaluator, {os.cpu_count()} host cores): "
         f"{time.perf_counter() - t0:.1f} s for {ref['noise'].shape} noise, "
         f"{ref['ref_signal_len']} reference frames")
+    np.savez(REHEARSAL_REF, **{k: np.asarray(v) for k, v in ref.items() if k != "combined_text"},
+             combined_text=np.asarray(str(ref["combined_text"])))  # as --save-ref writes it
 
     want = spec.depth * (spec.nfe_step - 1)
     bounds = {"float32": 1e-2, "bfloat16": GOLDEN_BF16_MAX}  # kernel vs plain
@@ -1560,7 +1599,7 @@ def phase_conversion(smi: str) -> int:
         f"{report['weights']['leaves_total']} leaves, {len(report['warnings'])} warnings")
     if not report["ok"] or route.get("kernel") != 1:
         raise AssertionError(f"(b) preflight: {report['blockers'][:5]}, route {route}")
-    pack = root / "packs" / "vietvoice-tpu-v1"
+    pack = F5_PACK
     proc = _run_cli("convert CLI", ["vietvoice_tts_tpu_torch.models.convert", str(tar),
                                     str(pack)], smi, 600)
     conv = json.loads(proc.stdout)
@@ -2108,6 +2147,315 @@ def phase_parallel(cfg, smi: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the golden harness's sweeps (golden.py in the package) on phase
+# 10 (b)'s converted pack: F5 widths, 16 × 64 (kernel 1), 22 layers, NFE 32.
+# ---------------------------------------------------------------------------
+
+P12_SHAPE = (16, 64, 22, 31)  # heads, head_dim, layers, Euler steps of phase 10 (b)'s pack
+P12_FRAMES = 448  # the bucket of (b) and (c), and of (a)'s kernel-vs-plain check
+# Timed solves per sweep setting, after an untimed one: 2, not the
+# harness's default 3, to keep the script inside its time limit; (e) times
+# the same settings over P12_ROUNDS interleaved rounds.
+P12_REPEATS = 2
+P12_ROUNDS = 5  # (e)'s interleaved rounds: one solve of every setting each
+P12_DEEP = ((1, 7), (2, 7), (2, 11), (3, 7))  # the JAX harness's default settings
+P12_CFG = (1, 2, 4)
+P12_DRIFT_FRAMES = (384, 448, 512, 704)  # the JAX harness's default buckets
+P12_HELD_MIB = 16  # device memory a harness call may leave allocated behind it
+
+
+def _counted(label: str, fn, want: int):
+    """``fn()`` with the launch counters set to 0 just before and read just
+    after → (its result, wall s); kernel 1 must launch exactly ``want``
+    times and kernel 2 never, and the cores ``fn`` built must be released
+    (device memory back to where it was)."""
+    import torch
+
+    held = torch.cuda.memory_allocated()
+    _reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _launches()
+    if got != {"fused_rope": want, "flash": 0}:
+        raise AssertionError(f"[12] {label}: launches {got}, want {want} of kernel 1")
+    gc.collect()  # an EngineCore holds reference cycles: only the collector frees it
+    left = (torch.cuda.memory_allocated() - held) / 2**20
+    if left > P12_HELD_MIB:
+        raise AssertionError(f"[12] {label}: {left:.0f} MiB of device memory left behind")
+    return out, wall
+
+
+def _deep_cache_evals(depth: int, steps: int, r: int, j: int) -> int:
+    """Block evaluations of one solve, each one launch of kernel 1:
+    ⌈steps/r⌉ full passes and j shallow blocks on the other steps."""
+    full = -(-steps // r)
+    return depth * full + j * (steps - full)
+
+
+def _sweep_ref(pack: Path, per_solve: int, card: str) -> dict:
+    """The sweeps' reference: the pack's reference clip (``reference_side``
+    takes ``audio_metadata.json[0]``), the golden text and seeded noise at
+    P12_FRAMES; its ``ref_mel`` is the port's own float32 exact latent
+    (TF32 off, ``per_solve`` kernel-1 launches, counted apart)."""
+    from vietvoice_tts_tpu_torch.golden import torch_latent
+    from vietvoice_tts_tpu_torch.pipeline.audio import AudioProcessor
+    from vietvoice_tts_tpu_torch.pipeline.text import TextProcessor
+
+    sample = json.loads((pack / "audio_metadata.json").read_text())[0]
+    audio = AudioProcessor.load_audio(str(pack / "audios" / sample["file_name"]), 24000)
+    tp = TextProcessor(str(pack / "vocab.txt"))
+    n_mels = json.loads((pack / "model_meta.json").read_text())["n_mels"]
+    noise = np.random.default_rng(12).standard_normal((1, P12_FRAMES, n_mels)).astype(np.float32)
+    ref = {
+        "audio": audio.astype(np.float32) / 32768.0,
+        "combined_text": tp.clean_text(sample["text"]) + tp.clean_text(GOLDEN_TEXT),
+        "noise": noise,
+        "ref_mel": np.zeros_like(noise),
+        "ref_signal_len": len(audio) // 256 + 1,
+        "nfe_step": 32,
+    }
+    (latent, _), wall = _counted(
+        "f32 exact reference",
+        lambda: torch_latent(pack, ref, device="cuda", compute_dtype="float32"), per_solve)
+    if not np.isfinite(latent).all():
+        raise AssertionError("[12] the f32 reference latent is not finite")
+    log(f"[12] reference: {len(audio) / 24000:.2f} s clip, {ref['ref_signal_len']} reference "
+        f"frames of {P12_FRAMES}; f32 exact latent {wall:.1f} s with the core's build, "
+        f"{per_solve} kernel-1 launches [{card}]")
+    return {**ref, "ref_mel": latent}
+
+
+def _kernel_vs_plain_at_depth(pack: Path, ref: dict, per_solve: int, depth: int,
+                              card: str) -> None:
+    """(a) The bucket-448 solve of the sweeps' reference with kernel 1 and
+    without, in float32 (its SIMT variant; the kernel's latent is ``ref``'s
+    own ``ref_mel``) and bf16 (its wgmma variant), each held to
+    MEL_TOLERANCE; each bf16 latent's distance from the float32 one says
+    whether bf16's drift comes from the kernel or from bf16 arithmetic."""
+    from vietvoice_tts_tpu_torch.golden import torch_latent
+
+    valid = slice(int(ref["ref_signal_len"]), P12_FRAMES)
+    latents = {("float32", True): ref["ref_mel"]}
+    for dtype, use_kernels in (("float32", False), ("bfloat16", True), ("bfloat16", False)):
+        (latent, _), _ = _counted(
+            f"(a) {dtype} use_kernels={use_kernels}",
+            lambda: torch_latent(pack, ref, device="cuda", compute_dtype=dtype,
+                                 use_kernels=use_kernels),
+            per_solve if use_kernels else 0)
+        if not np.isfinite(latent).all():
+            raise AssertionError(f"[12] (a) {dtype} use_kernels={use_kernels}: not finite")
+        latents[dtype, use_kernels] = latent
+    for dtype, (max_tol, mean_tol) in MEL_TOLERANCE.items():
+        diff = np.abs(latents[dtype, True][0, valid] - latents[dtype, False][0, valid])
+        err, mean = float(diff.max()), float(diff.mean())
+        log(f"[12] (a) bucket {P12_FRAMES}, {dtype} latent, kernel vs plain at {depth} layers: "
+            f"max-abs {err:.3e} (tol {max_tol:.0e}), mean-abs {mean:.3e} (tol {mean_tol:.0e}) "
+            f"[{card}]")
+        if not (err <= max_tol and mean <= mean_tol):
+            raise AssertionError(f"[12] (a) {dtype} kernel vs plain: max-abs {err:.3e}, "
+                                 f"mean-abs {mean:.3e}")
+    f32 = latents["float32", False][0, valid]
+    for use_kernels in (True, False):
+        d = np.abs(latents["bfloat16", use_kernels][0, valid] - f32)
+        log(f"[12] (a) bucket {P12_FRAMES}, bf16 {'kernel' if use_kernels else 'plain'} vs "
+            f"plain float32: mel MAE {d.mean():.3e}, max-abs {d.max():.3e} [{card}]")
+
+
+def _interleaved_prices(pack: Path, ref: dict, settings: list) -> list:
+    """(e) One bf16 core whose sampler takes each sweep setting in turn (the
+    sampler reads its config at every solve; the weights are the same for
+    all): one untimed solve each, then P12_ROUNDS rounds with the settings'
+    order rotated every round (the median of each setting's solves), and
+    one solve each under ``torch.profiler`` (its device kernel time and
+    kernel count). ``settings``: (label, SamplerConfig fields, kernel-1
+    launches a solve) → rows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vietvoice_tts_tpu_torch.golden import _latent_inputs
+    from vietvoice_tts_tpu_torch.runtime.engine_core import EngineCore
+    from vietvoice_tts_tpu_torch.runtime.serialization import load_params
+    from vietvoice_tts_tpu_torch.runtime.session import config_from_pack
+
+    cfg = config_from_pack(pack, nfe_step=int(ref["nfe_step"]), device="cuda")
+    args, noise, _, _ = _latent_inputs(cfg, pack, ref)
+    core = EngineCore(cfg, load_params(pack / "params.msgpack"), cfg.vocab_size)
+    samplers = [dataclasses.replace(core.sampler_cfg, **knobs) for _, knobs, _ in settings]
+
+    def solve(i):
+        core.sampler_cfg = samplers[i]
+        return core.mel_latent_batch(*args, x0=noise)  # host numpy: after the device's work
+
+    for i in range(len(settings)):
+        solve(i)
+    walls = [[] for _ in settings]
+    for rnd in range(P12_ROUNDS):
+        for i in (np.arange(len(settings)) + rnd) % len(settings):
+            t0 = time.perf_counter()
+            solve(i)
+            walls[i].append((time.perf_counter() - t0) * 1e3)
+    rows = []
+    for i, ((label, _, evals), ms) in enumerate(zip(settings, walls)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # The device's activity alone: tracing every host op as well costs
+        # seconds a solve.
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            solve(i)
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0
+                   and not getattr(e, "is_user_annotation", False) and "#" not in e.key]
+        rows.append({"label": label, "evals": evals, "ms": ms,
+                     "median_ms": statistics.median(ms),
+                     "device_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
+                     "kernels": sum(e.count for e in kernels),
+                     "trace_s": time.perf_counter() - t0})
+    return rows
+
+
+def phase_sweeps(card: str) -> int:
+    """Phase 12: ``precision_drift``, ``deep_cache_sweep`` and
+    ``cfg_cache_sweep`` at 16 × 64, 22 layers, through kernel 1, the
+    harness's command line, and the sweeps' settings timed interleaved and
+    traced; returns kernel 1's launches."""
+    import torch
+
+    from vietvoice_tts_tpu_torch.golden import (
+        cfg_cache_sweep, deep_cache_sweep, precision_drift)
+    from vietvoice_tts_tpu_torch.runtime.session import config_from_pack
+
+    t_phase = time.perf_counter()
+    pack = F5_PACK
+    pack_cfg = config_from_pack(pack)
+    depth, steps = pack_cfg.dit_depth, pack_cfg.nfe_step - 1
+    if (pack_cfg.dit_heads, pack_cfg.head_dim, depth, steps) != P12_SHAPE:
+        raise AssertionError(f"[12] pack {pack_cfg.dit_heads} × {pack_cfg.head_dim}, "
+                             f"{depth} layers, {steps} steps: want {P12_SHAPE}")
+    per_solve = depth * steps
+    total = 0
+
+    # (a) precision_drift: per bucket a float32 solve (TF32 off, kernel 1's
+    # SIMT variant) and a bf16 one (its wgmma variant).
+    want = 2 * len(P12_DRIFT_FRAMES) * per_solve
+    drift, wall = _counted("(a) precision_drift",
+                           lambda: precision_drift(pack, frames=P12_DRIFT_FRAMES,
+                                                   device="cuda"), want)
+    total += want
+    log(f"[12] (a) precision_drift, compute {drift['compute_dtype']} vs float32, "
+        f"{drift['ref_frames']} reference frames: {wall:.1f} s, {want} kernel-1 launches [{card}]")
+    for row in drift["rows"]:
+        over = " — over the 5e-2 bound (reported, not gated)" if (
+            row["mel_max_abs"] > GOLDEN_BF16_MAX) else ""
+        log(f"[12] (a) bucket {row['frames']}: mel MAE {row['mel_mae']:.3e}, max-abs "
+            f"{row['mel_max_abs']:.3e}, rel MAE {row['rel_mae']:.3e}{over} [{card}]")
+        if not all(np.isfinite([row["mel_mae"], row["mel_max_abs"], row["rel_mae"]])):
+            raise AssertionError(f"[12] (a) drift not finite: {row}")
+
+    ref = _sweep_ref(pack, per_solve, card)
+    total += per_solve
+    # The bf16 kernel solve here only compares: its launches are not counted.
+    _kernel_vs_plain_at_depth(pack, ref, per_solve, depth, card)
+
+    # (b) deep_cache_sweep and (c) cfg_cache_sweep in bf16 (--serving-precision).
+    torch.cuda.reset_peak_memory_stats()
+    want = (1 + P12_REPEATS) * sum(_deep_cache_evals(depth, steps, r, j) for r, j in P12_DEEP)
+    deep, wall = _counted("(b) deep_cache_sweep",
+                          lambda: deep_cache_sweep(pack, ref, settings=P12_DEEP,
+                                                   repeats=P12_REPEATS, device="cuda"), want)
+    total += want
+    log(f"[12] (b) deep_cache_sweep, bf16, bucket {deep['frames']}, best of {P12_REPEATS}: "
+        f"{wall:.1f} s, {want} kernel-1 launches, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    for row in deep["rows"]:
+        r, j = row["deep_cache_interval"], row["deep_cache_blocks"]
+        log(f"[12] (b) r={r} j={j}: {row['latent_ms']} ms a solve, speedup "
+            f"{row['speedup_vs_exact']}, {_deep_cache_evals(depth, steps, r, j)} block "
+            f"evaluations; drift vs exact MAE {row['mel_mae_vs_exact']:.3e}, max-abs "
+            f"{row['mel_max_abs_vs_exact']:.3e}; MAE vs the f32 exact latent (the "
+            f"mel_mae_vs_onnx column) {row['mel_mae_vs_onnx']:.3e} [{card}]")
+    torch.cuda.reset_peak_memory_stats()
+    want = (1 + P12_REPEATS) * len(P12_CFG) * per_solve
+    cfgc, wall = _counted("(c) cfg_cache_sweep",
+                          lambda: cfg_cache_sweep(pack, ref, intervals=P12_CFG,
+                                                  repeats=P12_REPEATS, device="cuda"), want)
+    total += want
+    log(f"[12] (c) cfg_cache_sweep, bf16, bucket {cfgc['frames']}, best of {P12_REPEATS}: "
+        f"{wall:.1f} s, {want} kernel-1 launches (a cond-only evaluation is still one "
+        f"launch a block), peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    for row in cfgc["rows"]:
+        log(f"[12] (c) k={row['uncond_interval']}: {row['latent_ms']} ms a solve, speedup "
+            f"{row['speedup_vs_exact']}; drift vs exact MAE {row['mel_mae_vs_exact']:.3e}, "
+            f"max-abs {row['mel_max_abs_vs_exact']:.3e}; MAE vs the f32 exact latent "
+            f"{row['mel_mae_vs_onnx']:.3e} [{card}]")
+    for rec in (deep, cfgc):
+        exact = rec["rows"][0]
+        if exact["mel_mae_vs_exact"] != 0.0 or not all(
+                np.isfinite(r["mel_mae_vs_onnx"]) and r["latent_ms"] > 0 for r in rec["rows"]):
+            raise AssertionError(f"[12] {rec['metric']}: {rec['rows']}")
+
+    # (d) The command line on 10 (a)'s depth-2, NFE-8 pack against its ONNX
+    # reference side: there mel_mae_vs_onnx is the real thing.
+    env = {**os.environ, "VIETVOICE_LOG_LEVEL": "WARNING"}
+    cmd = [sys.executable, "-m", "vietvoice_tts_tpu_torch.golden", "--ref-npz",
+           str(REHEARSAL_REF), "--pack", str(REHEARSAL_PACK)]
+    t0 = time.perf_counter()
+    proc = subprocess.run([*cmd, "--cfg-cache-sweep", "1,2"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"[12] (d) exit {proc.returncode}, {len(lines)} lines\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    rec = json.loads(lines[0])
+    rows = rec["rows"]
+    if (rec["metric"], rec["precision"], [r["uncond_interval"] for r in rows]) != (
+            "cfg_cache_price", "float32", [1, 2]) or not rows[0]["mel_mae_vs_onnx"] < GOLDEN_F32[0]:
+        raise AssertionError(f"[12] (d) {rec}")
+    log(f"[12] (d) golden --cfg-cache-sweep 1,2 on the depth-{REHEARSAL_DEPTH} pack, f32: "
+        f"exit 0 in {wall:.1f} s; mel MAE vs ONNX {rows[0]['mel_mae_vs_onnx']:.3e} (k=1), "
+        f"{rows[1]['mel_mae_vs_onnx']:.3e} (k=2); drift k=2 {rows[1]['mel_mae_vs_exact']:.3e} "
+        f"[{card}]")
+    proc = subprocess.run([*cmd, "--deep-cache-sweep", "2:1"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 2 or proc.stdout.strip():
+        raise AssertionError(f"[12] (d) --deep-cache-sweep 2:1: exit {proc.returncode}, "
+                             f"{proc.stdout[-500:]}")
+    log(f"[12] (d) --deep-cache-sweep 2:1 (no exact baseline): exit 2, "
+        f"{proc.stderr.strip().splitlines()[-1]}")
+
+    # (e) The sweeps time each setting best-of-repeats in a fixed order, as the JAX
+    # harness does; here all of (b)'s and (c)'s settings are timed
+    # interleaved on one core, and each one's device time is read from a trace.
+    settings = [("exact", {}, per_solve)]
+    settings += [(f"deep r={r} j={j}", {"deep_cache_interval": r, "deep_cache_blocks": j},
+                  _deep_cache_evals(depth, steps, r, j)) for r, j in P12_DEEP[1:]]
+    settings += [(f"cfg k={k}", {"uncond_interval": k}, per_solve) for k in P12_CFG[1:]]
+    want = (2 + P12_ROUNDS) * sum(evals for _, _, evals in settings)
+    rows, wall = _counted("(e) interleaved", lambda: _interleaved_prices(pack, ref, settings),
+                          want)
+    total += want
+    log(f"[12] (e) {len(settings)} settings on one bf16 core, bucket {P12_FRAMES}, {P12_ROUNDS} "
+        f"interleaved rounds and one traced solve each: {wall:.1f} s, {want} kernel-1 "
+        f"launches [{card}]")
+    base = rows[0]
+    for row in rows:
+        traced = (f"device kernels {row['device_ms']:.1f} ms in {row['kernels']} launches, "
+                  f"idle {100 * (1 - row['device_ms'] / row['median_ms']):.0f}% of the median"
+                  if row["device_ms"] else "the profiler recorded no device time")
+        log(f"[12] (e) {row['label']}: {row['evals']} block evaluations; median "
+            f"{row['median_ms']:.2f} ms (rounds {' '.join(f'{t:.1f}' for t in row['ms'])}), "
+            f"speedup {base['median_ms'] / row['median_ms']:.3f}; {traced} (the traced solve "
+            f"and its reading {row['trace_s']:.1f} s) [{card}]")
+    log(f"[12] done in {time.perf_counter() - t_phase:.1f} s, {total} kernel-1 launches "
+        f"[{card}]")
+    return total
+
+
 def main() -> int:
     try:
         import torch
@@ -2153,10 +2501,12 @@ def main() -> int:
     torch.cuda.synchronize()
     parallel_launches = phase_parallel(cfg, smi)
     torch.cuda.synchronize()
+    sweep_launches = phase_sweeps(card)
+    torch.cuda.synchronize()
     launches = {
         "fused_rope": (launches["fused_rope"] + batched["fused_rope"] + rest_launches
                        + trained_launches + converted_launches
-                       + parallel_launches["fused_rope"]),
+                       + parallel_launches["fused_rope"] + sweep_launches),
         "flash": launches["flash"] + batched["flash"] + parallel_launches["flash"],
     }
     fused_record["launches"] = launches["fused_rope"]
