@@ -78,7 +78,8 @@ check raises):
    relative, each gradient leaf within 1e-4 of its max-abs); (c) ``TTSApi``
    on the trained pack serves a short request (682 fused-kernel launches);
    (d) ``python -m vietvoice_tts_tpu_torch.training`` as a subprocess with no
-   ``--device``: exit code 0, ``cuda`` and a finite final loss.
+   ``--device``, on a seeded pack of 2 layers at the full widths: exit code
+   0, ``cuda`` and a finite final loss.
 10. Conversion day at the F5 widths (``models/f5_fixture.py:FixtureSpec``:
     dim 1024, 16 heads × 64 — kernel 1's head shape — ff_mult 2, text 512 ×
     4 conv layers, 100 mels, vocab 211, vocoder 512/1536/8), from a synthetic
@@ -100,14 +101,15 @@ check raises):
     native cross-fade (``native/``, built with ``g++``) on a three-chunk text,
     blocking and streamed: the join counter moves, every join within 1 LSB
     of the numpy cross-fade of the same chunks, and their times side by side.
-11. ``parallel/`` at full width, as ranks (processes started here) that
-    share the card over gloo (NCCL refuses two ranks on one device), each
-    against one rank in this process, seeded pack with opened gates:
+11. ``parallel/`` at the default model's widths and 4 of its 22 layers
+    (``P11_DEPTH``, a seeded pack of its own), as ranks (processes started
+    here) that share the card over gloo (NCCL refuses two ranks on one
+    device), each against one rank in this process, gates opened:
     (a) tensor parallelism, TP 2, ``EngineCore.mel_latent_batch`` at bucket
     384 from one injected noise — 8 × 128 in float32 (TF32 off, ≤ 1e-2) and
-    bfloat16 (≤ MEL_TOLERANCE), 16 × 64 and 32 × 32 in bfloat16 — with 682
-    launches per rank of kernel 1 at 4 × 128 and 8 × 64 and of kernel 2 at
-    16 × 32; (b) Ulysses, sequence parallel 2, bucket 2048, bfloat16, 682
+    bfloat16 (≤ MEL_TOLERANCE), 16 × 64 and 32 × 32 in bfloat16 — with 4 × 31
+    = 124 launches per rank of kernel 1 at 4 × 128 and 8 × 64 and of kernel 2
+    at 16 × 32; (b) Ulysses, sequence parallel 2, bucket 2048, bfloat16, 124
     kernel-1 launches per rank on all 2048 frames at 4 heads; (c) the ring,
     sequence parallel 3 (8 heads do not split over 3), bucket 384, float32,
     no kernel;
@@ -116,7 +118,7 @@ check raises):
     256, loss within 1e-5 relative and every parameter leaf within 1e-4 of
     its max-abs, no launch; (f) ``MultiHostServingLoop`` on TP 2 in float32:
     rank 0 submits the short request's chunk and the long text's first
-    chunk, both ranks dispatch in lockstep (682 launches per dispatch), the
+    chunk, both ranks dispatch in lockstep (124 launches per dispatch), the
     served PCM within STREAM_TOLERANCE, and rank 0's stop ends both loops. Every
     tensor at a collective and every DiT and vocoder output must be on the
     card. The ranks' collectives are staged through host memory: no time
@@ -147,12 +149,28 @@ check raises):
     in an order rotated each round (medians), then one solve each under
     ``torch.profiler``: its device kernel time, and the device's idle share
     of the median — 7 × 3,402 = 23,814 launches.
+13. The port's bench harness (``vietvoice_tts_tpu_torch/bench.py``, the root
+    ``bench.py``'s configs) on phase 5's seeded pack: (a) ``python -m
+    vietvoice_tts_tpu_torch.bench --skip-rest`` as a subprocess, started
+    before phase 11 and awaited after it (to keep the script's time; it
+    measures nothing here) — exit 0, a
+    last line with the root harness's compact keys, ``backend`` ``cuda``, a
+    value above 0, its full record under ``build/chip_smoke/bench/``, and
+    682 kernel-1 launches per dispatched batch in that record; (b) the REST
+    sweep in this process at 16 requests a point, through the bench's own
+    ``_rest_sweep_point`` (c = 6, and c = 12 with a batch cap of 12) and
+    ``_rest_open_loop_point`` (12 req/s): no failed request, a mean batch
+    size above 1 in each closed-loop point, 682 launches per dispatched
+    batch; (c) row 0 of a batch of 32 at 512 frames, dispatched as
+    ``bench_batched`` dispatches it, against the same row alone at batch 1
+    with the same seed, within STREAM_TOLERANCE.
 
 Phases 2-4, 10 (a) and 12 (a) hold each kernel against its plain version;
 the main path whose launches the kernels' record counts is every serving
-request of phases 5-11 and every solve of phase 12 (counters set to 0 just
-before, read just after; in phase 11 each rank counts its own, and the
-record sums them).
+request of phases 5-11, every solve of phase 12 and every batch of phase 13
+(counters set to 0 just before, read just after; in phase 11 each rank
+counts its own, in 13 (a) the bench's process, and the record sums them).
+Each phase's wall time is logged, and all of them at the end.
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``. Weights are random, made from a seed, and
@@ -191,7 +209,12 @@ TRAIN_WORK = WORK / "train"  # a copy of the seeded pack, trained and served by 
 # tensor parallelism 2 at bucket 384, and Ulysses 2's 4 heads on the whole
 # 2048 frames. The last four are phase 12's at 16×64: the precision_drift
 # buckets 384, 448 and 704 (448 and 704 end on a half-empty 128-row query
-# block), and batch 1 at 448, the CFG cache's cond-only evaluations.
+# block), and batch 1 at 448, the CFG cache's cond-only evaluations. Then
+# the bench's (vietvoice_tts_tpu_torch/bench.py, phase 13) at 8×128: the
+# breakdown's and the REST sweep's bucket 384, the short sentence's 440
+# (tail block of 56 rows), the warm-up's 544, the streamed 4 s head chunk's
+# 640, the voice clone's 704, the long text's two chunks at 2048 in one
+# batch, the sweep's batch cap of 12 at 384, batch 32 and batch 64 at 512.
 KERNEL_SHAPES = [
     (2, 512, 8, 128),
     (2, 512, 16, 64),
@@ -207,6 +230,15 @@ KERNEL_SHAPES = [
     (2, 448, 16, 64),
     (2, 704, 16, 64),
     (1, 448, 16, 64),
+    (2, 384, 8, 128),
+    (2, 440, 8, 128),
+    (2, 544, 8, 128),
+    (2, 640, 8, 128),
+    (2, 704, 8, 128),
+    (4, 2048, 8, 128),
+    (24, 384, 8, 128),
+    (64, 512, 8, 128),
+    (128, 512, 8, 128),
 ]
 LATENCY_SHAPE = (2, 448, 8, 128)
 # Phase-3 shapes of flash_attention, (B, H, N, D): 32×32 is the default
@@ -401,6 +433,10 @@ def phase_kernels(card: str) -> dict:
                 f"{err:.3e} (tol {tol:.0e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"bound {bound_ms:.5f} ms ({bound_by}) [{card}]"
             )
+            # The plain version's scores at (128, 512, 8, 128) in f32 take
+            # 1 GiB: hand every block back before the next shape.
+            del qkv, mask, cos, sin, out, ref
+            torch.cuda.empty_cache()
     ms, plain_ms, bound_ms, bound_by = measured[(*LATENCY_SHAPE, "bfloat16")]
     return {
         "name": "fused_qkv_rope_attention",
@@ -537,9 +573,11 @@ def _kernel_vs_plain_latent(label, cfg, params, vocab_size, args, x0, total_len,
 
     for dtype, (max_tol, mean_tol) in MEL_TOLERANCE.items():
         latents = {}
+        # One core for both routes: the DiT picks kernel or plain version
+        # from its config at each call, and the weights are the same.
+        core = EngineCore(dataclasses.replace(cfg, compute_dtype=dtype), params, vocab_size)
         for use_kernels in (True, False):
-            run_cfg = dataclasses.replace(cfg, compute_dtype=dtype, use_kernels=use_kernels)
-            core = EngineCore(run_cfg, params, vocab_size)
+            core.dit.cfg = dataclasses.replace(core.dit.cfg, use_kernels=use_kernels)
             _reset_launches()
             t0 = time.perf_counter()
             lat = core.mel_latent_batch(*args, x0=x0)
@@ -555,10 +593,10 @@ def _kernel_vs_plain_latent(label, cfg, params, vocab_size, args, x0, total_len,
                 raise AssertionError(f"{label}: bad {dtype} latent, shape {lat.shape}")
             latents[use_kernels] = lat[:, :total_len]
             log(f"[4] {label} {dtype} mel latent, use_kernels={use_kernels}: "
-                f"{wall * 1e3:.1f} ms (first solve of a fresh core), launches {got}, "
-                f"max |latent| {np.abs(lat).max():.3f} [{card}]")
-            del core
-            torch.cuda.empty_cache()
+                f"{wall * 1e3:.1f} ms ({'first' if use_kernels else 'second'} solve of the "
+                f"core), launches {got}, max |latent| {np.abs(lat).max():.3f} [{card}]")
+        del core
+        torch.cuda.empty_cache()
         diff = np.abs(latents[True] - latents[False])
         err, mean = float(diff.max()), float(diff.mean())
         log(f"[4] {label} {dtype} whole-path mel latent, kernel vs plain: max-abs "
@@ -1250,6 +1288,9 @@ def _leaf(tree, path):
     return np.asarray(tree)
 
 
+P9_CLI_DEPTH = 2  # DiT layers of the pack 9 (d)'s training command line trains
+
+
 def phase_training(cfg, smi: str) -> int:
     """The trainer at full width on a copy of the seeded pack; returns the
     fused kernel's launches of the request served from the trained pack."""
@@ -1259,6 +1300,7 @@ def phase_training(cfg, smi: str) -> int:
 
     from vietvoice_tts_tpu_torch import TTSApi
     from vietvoice_tts_tpu_torch.runtime.serialization import load_params
+    from vietvoice_tts_tpu_torch.runtime.session import ModelSessionManager
     from vietvoice_tts_tpu_torch.training.loop import TrainRunConfig
     from vietvoice_tts_tpu_torch.training.train import TrainConfig
 
@@ -1324,9 +1366,15 @@ def phase_training(cfg, smi: str) -> int:
         f"fused_rope launches; {time.perf_counter() - t0:.1f} s wall with the pack's load "
         f"[{smi}]")
 
-    # (d) The entry point as a user starts it: no --device, so on the card.
+    # (d) The entry point as a user starts it: no --device, so on the card;
+    # on a seeded pack of 2 layers at the full widths (the pack decides the
+    # model): loading, checkpointing and exporting the whole pack were most
+    # of this run's time, and (a) trains the whole depth.
+    cli_cfg = dataclasses.replace(cfg, dit_depth=P9_CLI_DEPTH,
+                                  model_cache_dir=str(TRAIN_WORK / "cli_models"))
+    ModelSessionManager(cli_cfg).load_models()
     cmd = [sys.executable, "-m", "vietvoice_tts_tpu_torch.training", "--steps", "2",
-           "--batch-size", "8", "--model-cache-dir", str(TRAIN_WORK / "models"),
+           "--batch-size", "8", "--model-cache-dir", cli_cfg.model_cache_dir,
            "--checkpoint-dir", str(TRAIN_WORK / "cli_ckpt")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
@@ -1338,8 +1386,9 @@ def phase_training(cfg, smi: str) -> int:
     if not (re.search(r"^Device: cuda", proc.stdout, re.M) and final and final.group(1) == "2"
             and np.isfinite(float(final.group(2)))):
         raise AssertionError(f"training CLI printed:\n{proc.stdout[-2000:]}")
-    log(f"[9] (d) python -m vietvoice_tts_tpu_torch.training --steps 2 --batch-size 8: exit 0 "
-        f"in {wall:.1f} s wall, device cuda, f32, final loss {float(final.group(2)):.4f} [{smi}]")
+    log(f"[9] (d) python -m vietvoice_tts_tpu_torch.training --steps 2 --batch-size 8 on a "
+        f"{P9_CLI_DEPTH}-layer pack: exit 0 in {wall:.1f} s wall, device cuda, f32, final loss "
+        f"{float(final.group(2)):.4f} [{smi}]")
     shutil.rmtree(TRAIN_WORK, ignore_errors=True)  # ~20 GB of checkpoints
     return got["fused_rope"]
 
@@ -1660,6 +1709,11 @@ def phase_conversion(smi: str) -> int:
 # ---------------------------------------------------------------------------
 
 P11_WORK = WORK / "parallel"
+# The ranks' DiT depth: every width of the default model, 4 of its 22
+# layers, on a seeded pack of their own (P11_WORK / "models"). A solve's
+# collectives go through host memory, so depth is what this phase's time
+# scales with; the launch checks are per layer and scale with it.
+P11_DEPTH = 4
 P11_TIMEOUT = 600.0  # seconds a launch of ranks may take before it is killed
 P11_THREADS = 2  # host threads per rank (8 cores, up to 3 ranks)
 P11_TRAIN = dict(compute_dtype="float32", warmup_steps=1)  # (e): the 2nd update moves
@@ -2019,6 +2073,7 @@ def phase_parallel(cfg, smi: str) -> dict:
 
     t_phase = time.perf_counter()
     card = f"{torch.cuda.get_device_name(0)}, {smi.split(',')[-1].strip()}"
+    cfg = dataclasses.replace(cfg, dit_depth=P11_DEPTH, model_cache_dir=str(P11_WORK / "models"))
     params, vocab, mgr = _p11_params(cfg)
     ref_audio, _ = mgr.select_sample()
     ref = AudioProcessor.load_audio(ref_audio, cfg.sample_rate).astype(np.float32) / 32768.0
@@ -2456,6 +2511,168 @@ def phase_sweeps(card: str) -> int:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the port's bench harness (vietvoice_tts_tpu_torch/bench.py, the
+# root bench.py's configs) on phase 5's seeded pack, default model (8 × 128).
+# ---------------------------------------------------------------------------
+
+BENCH_WORK = WORK / "bench"
+P13_REQUESTS = 16  # requests per REST point: the bench's 64, cut for time
+P13_SWEEP = ((6, 10.0, None), (12, 10.0, 12))  # (concurrency, max_wait_ms, cap)
+P13_OPEN_LOOP_RPS = 12.0
+P13_BATCH = (32, 512, 125)  # batch32's rows, frames and reference frames
+P13_TIMEOUT = 600.0  # seconds the bench's process may take
+
+
+def start_bench_process():
+    """13 (a), started: ``python -m vietvoice_tts_tpu_torch.bench
+    --skip-rest`` as a user starts it, in its own process. It runs beside
+    phase 11 (whose ranks' times are no measurement either) and is awaited
+    after it, by ``finish_bench_process``; its own times are not measured
+    here (``PERF.md`` quotes the bench's runs on an idle card)."""
+    import torch
+
+    BENCH_WORK.mkdir(parents=True, exist_ok=True)
+    full_out = BENCH_WORK / "BENCH_full.json"
+    full_out.unlink(missing_ok=True)
+    gc.collect()
+    torch.cuda.empty_cache()  # the bench's process needs the card's memory
+    cmd = [sys.executable, "-m", "vietvoice_tts_tpu_torch.bench", "--skip-rest",
+           "--full-out", str(full_out)]
+    env = {**os.environ, "VIETVOICE_TPU_CACHE": str(WORK / "models"),
+           "VIETVOICE_LOG_LEVEL": "WARNING"}
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env)
+    return proc, full_out, time.perf_counter()
+
+
+def finish_bench_process(started, cfg, smi: str) -> int:
+    """13 (a), awaited: exit 0, the root harness's compact keys, ``cuda``, a
+    value above 0, the full record, and 682 kernel-1 launches per batch in
+    it; returns those launches."""
+    from vietvoice_tts_tpu_torch.bench import COMPACT_KEYS, COMPACT_MAX_CHARS
+
+    proc, full_out, t0 = started
+    per_batch = cfg.dit_depth * (cfg.nfe_step - 1)
+    try:
+        stdout, stderr = proc.communicate(timeout=P13_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"bench did not finish in {P13_TIMEOUT:.0f} s") from None
+    wall = time.perf_counter() - t0
+    for line in stderr.splitlines():
+        if line.startswith("["):
+            log(f"[13] (a) bench: {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"bench exited {proc.returncode}:\n{stderr[-3000:]}")
+    last = stdout.strip().splitlines()[-1]
+    compact = json.loads(last)
+    if (list(compact) != list(COMPACT_KEYS) or len(last) > COMPACT_MAX_CHARS
+            or compact["backend"] != "cuda" or not compact["value"] > 0):
+        raise AssertionError(f"bench's compact line: {last}")
+    record = json.loads(full_out.read_text())
+    launches = record["launches"]
+    fused, flash = launches["fused_qkv_rope_attention"], launches["flash_attention"]
+    if flash != 0 or fused <= 0 or fused % per_batch:
+        raise AssertionError(f"bench's launches {launches}, want a multiple of {per_batch}")
+    log(f"[13] (a) bench --skip-rest: exit 0, {wall:.1f} s from its start (beside phase 11: "
+        f"no time of this run is a measurement); {len(last)} characters: {last} [{smi}]")
+    log(f"[13] (a) full record {full_out.relative_to(ROOT)}: {fused} kernel-1 launches "
+        f"({fused // per_batch} batches) [{smi}]")
+    return fused
+
+
+def _bench_rest(api, per_batch: int, smi: str) -> int:
+    """13 (b): the bench's REST points in this process, at P13_REQUESTS each;
+    returns the kernel-1 launches."""
+    from vietvoice_tts_tpu_torch import bench
+    from vietvoice_tts_tpu_torch.api import tts_engine as te
+
+    engine = api.engine
+    batchers = []
+    real = engine.enable_micro_batching
+
+    def keep(**kw):
+        batchers.append(real(**kw))
+        return batchers[-1]
+
+    engine.enable_micro_batching = keep
+    total = 0
+    try:
+        t0 = time.perf_counter()
+        client = bench.serve_through_app(api)
+        log(f"[13] (b) app routed to the engine, batch grid warmed in "
+            f"{time.perf_counter() - t0:.1f} s")
+        points = [(f"c={c} wait={w} cap={cap}", lambda c=c, w=w, cap=cap: bench._rest_sweep_point(
+            api, client, P13_REQUESTS, c, w, max_batch=cap)) for c, w, cap in P13_SWEEP]
+        points.append((f"open loop {P13_OPEN_LOOP_RPS} req/s",
+                       lambda: bench._rest_open_loop_point(api, client, P13_REQUESTS,
+                                                           P13_OPEN_LOOP_RPS, max_batch=12)))
+        for label, run in points:
+            _reset_launches()
+            point = run()
+            got = _launches()
+            stats = batchers[-1].stats
+            if stats.failures or stats.retries:
+                raise AssertionError(f"(b) {label}: {stats}")
+            if got != {"fused_rope": stats.batches * per_batch, "flash": 0}:
+                raise AssertionError(f"(b) {label}: launches {got} for {stats.batches} batches")
+            if "mode" not in point and not point["mean_batch_size"] > 1:
+                raise AssertionError(f"(b) {label}: mean batch size {point['mean_batch_size']}")
+            total += got["fused_rope"]
+            log(f"[13] (b) REST {label}: {point}; {stats.batches} batches (the warm-up "
+                f"request's included), {stats.jobs} jobs, {got['fused_rope']} kernel-1 "
+                f"launches [{smi}]")
+    finally:
+        te._engine = None
+        engine.enable_micro_batching = real
+    return total
+
+
+def _bench_batch_row(api, per_batch: int, smi: str) -> int:
+    """13 (c): row 0 of a batch of 32 at 512 frames against the same row
+    alone at batch 1, one seed; returns the kernel-1 launches."""
+    from vietvoice_tts_tpu_torch.bench import _batched_inputs
+
+    core = api.engine.engine_core
+    batch, frames, ref_frames = P13_BATCH
+    wave, ref_len, ids, total = _batched_inputs(batch, frames, ref_frames, core.config.hop_length)
+    _reset_launches()
+    t0 = time.perf_counter()
+    rows = core.synthesize_batch_async(wave, ref_len, ids, total, seed=1)()
+    wall = time.perf_counter() - t0
+    alone = core.synthesize_batch(wave[:1], ref_len[:1], ids[:1], total[:1], seed=1)
+    got = _launches()
+    if got != {"fused_rope": 2 * per_batch, "flash": 0}:
+        raise AssertionError(f"(c) launches {got}")
+    _check_wave("(c) batch row 0", rows[0])
+    diff = np.abs(rows[0].astype(np.int32) - alone[0].astype(np.int32))
+    max_diff, mean_diff = int(diff.max()), float(diff.mean())
+    log(f"[13] (c) row 0 of batch {batch} × {frames} ({wall * 1e3:.1f} ms) against batch 1: "
+        f"largest sample difference {max_diff} (tol {STREAM_TOLERANCE[0]}), mean "
+        f"{mean_diff:.4f} (tol {STREAM_TOLERANCE[1]}) of 32767 [{smi}]")
+    if rows.shape != (batch, frames * core.config.hop_length) or alone.shape[1] != rows.shape[1]:
+        raise AssertionError(f"(c) shapes {rows.shape}, {alone.shape}")
+    if max_diff > STREAM_TOLERANCE[0] or mean_diff > STREAM_TOLERANCE[1]:
+        raise AssertionError("(c) batch row outside STREAM_TOLERANCE of its batch-1 self")
+    return got["fused_rope"]
+
+
+def phase_bench(cfg, smi: str) -> int:
+    """13 (b) and (c), the bench's REST points and a batch row in this
+    process; returns kernel 1's launches (kernel 2 has none: the bench
+    serves 8 × 128). (a) runs beside phase 11."""
+    from vietvoice_tts_tpu_torch import TTSApi
+
+    per_batch = cfg.dit_depth * (cfg.nfe_step - 1)
+    api = TTSApi(cfg)
+    try:
+        return _bench_rest(api, per_batch, smi) + _bench_batch_row(api, per_batch, smi)
+    finally:
+        api.cleanup()
+
+
 def main() -> int:
     try:
         import torch
@@ -2477,36 +2694,50 @@ def main() -> int:
     smi = nvidia_smi_line()
     card = f"{torch.cuda.get_device_name(0)}, {smi.split(',')[-1].strip()}"
     log(f"[1] {smi}")
-    phase_build()
-    torch.cuda.synchronize()
-    fused_record = phase_kernels(card)
-    flash_record = phase_flash_kernel(card)
-    torch.cuda.synchronize()
+    walls = {}
+
+    def phase(number, fn, *args):
+        """Run one phase, wait for the card, log its wall time."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        walls[number] = time.perf_counter() - t0
+        log(f"[{number}] phase wall {walls[number]:.1f} s")
+        return out
+
+    t_script = time.perf_counter()
+    phase(2, phase_build)
+    fused_record = phase(3, phase_kernels, card)
+    flash_record = phase("3 flash", phase_flash_kernel, card)
     cfg = ModelConfig(device="cuda", model_cache_dir=str(WORK / "models"))
     # The default model's widths with a head split the fused kernel does not
     # take (head_dim 32); the weights do not depend on the split.
     cfg32 = dataclasses.replace(cfg, dit_heads=32)
-    phase_whole_path(cfg, cfg32, card)
-    torch.cuda.synchronize()
-    launches, solo = phase_serving(cfg, cfg32, smi)
-    torch.cuda.synchronize()
-    batched = phase_batcher(cfg, cfg32, smi, solo)
-    torch.cuda.synchronize()
-    phase_cli(cfg, smi)
-    rest_launches = phase_rest(cfg, smi)
-    torch.cuda.synchronize()
-    trained_launches = phase_training(cfg, smi)
-    torch.cuda.synchronize()
-    converted_launches = phase_conversion(smi)
-    torch.cuda.synchronize()
-    parallel_launches = phase_parallel(cfg, smi)
-    torch.cuda.synchronize()
-    sweep_launches = phase_sweeps(card)
-    torch.cuda.synchronize()
+    phase(4, phase_whole_path, cfg, cfg32, card)
+    launches, solo = phase(5, phase_serving, cfg, cfg32, smi)
+    batched = phase(6, phase_batcher, cfg, cfg32, smi, solo)
+    phase(7, phase_cli, cfg, smi)
+    rest_launches = phase(8, phase_rest, cfg, smi)
+    trained_launches = phase(9, phase_training, cfg, smi)
+    converted_launches = phase(10, phase_conversion, smi)
+    # 13 (a), the bench's own process, runs beside phase 11 and is awaited
+    # before phase 12, whose times must be the card's alone.
+    bench = start_bench_process()
+    try:
+        parallel_launches = phase(11, phase_parallel, cfg, smi)
+        bench_launches = phase("13 (a)", finish_bench_process, bench, cfg, smi)
+    finally:
+        if bench[0].poll() is None:
+            bench[0].kill()
+            bench[0].communicate()
+    sweep_launches = phase(12, phase_sweeps, card)
+    bench_launches += phase(13, phase_bench, cfg, smi)
+    log(f"[walls] {', '.join(f'phase {k} {v:.1f} s' for k, v in walls.items())}; "
+        f"all phases {time.perf_counter() - t_script:.1f} s [{smi}]")
     launches = {
         "fused_rope": (launches["fused_rope"] + batched["fused_rope"] + rest_launches
                        + trained_launches + converted_launches
-                       + parallel_launches["fused_rope"] + sweep_launches),
+                       + parallel_launches["fused_rope"] + sweep_launches + bench_launches),
         "flash": launches["flash"] + batched["flash"] + parallel_launches["flash"],
     }
     fused_record["launches"] = launches["fused_rope"]
