@@ -34,7 +34,10 @@ check raises):
    MEL_TOLERANCE), with exactly 22 × 31 = 682 launches of the route's kernel
    per solve and none of the other. Then the sampler caches at 32 × 32, each
    against its own plain-path run: the CFG cache (682 launches) and the
-   deep-block cache (16 × 22 + 15 × 7 = 457).
+   deep-block cache (16 × 22 + 15 × 7 = 457). The kernel's solve is one
+   graph replay; the plain path runs eagerly (a comparison), and on both
+   routes the kernel's replay is also held against the eager program
+   bodies of the same core (LATENT_TOLERANCE).
 5. Serving through ``TTSApi``: a short sentence twice (must be identical),
    a voice clone from a WAV written here, and a long text that plans to ≥ 2
    chunks in one batch (682 launches per chunk batch); the long text again
@@ -164,13 +167,36 @@ check raises):
     batch; (c) row 0 of a batch of 32 at 512 frames, dispatched as
     ``bench_batched`` dispatches it, against the same row alone at batch 1
     with the same seed, within STREAM_TOLERANCE.
+14. The captured chunk programs (``runtime/graphs.py``; run after phase 10,
+    before the bench's process starts, on an idle card), on a seeded pack
+    with opened gates: (a) each batch through its CUDA graph twice against
+    the eager program bodies of the same core on the same inputs — the
+    short sentence (bucket 384) and the voice clone (768) on both routes
+    (cached conditioning, waveform) and batch 8 × 1024 — as int16 PCM within
+    STREAM_TOLERANCE, the largest difference printed either way (phase 4
+    holds the mel latent of both routes in float32 and bfloat16 within
+    LATENT_TOLERANCE, 10 (b) the 16 × 64 pack and 13 (c) batch 32 × 512 the
+    same way); (b) four batches of three shapes dispatched out of capture
+    order, two of one shape outstanding, fetched in reverse, each equal to
+    its own eager run; (c) per graph its capture wall, nodes, attention
+    launches, replay device ms and the host's ms to launch it, and the
+    device memory reserved before and after warming the serving grid of the
+    short sentence's bucket; (d) batch 1, eager against graph, interleaved
+    over P14_ROUNDS: the short request, its chunk, the chunk's host
+    dispatch and ``compute_ms_b1``, one traced chunk of each (device kernel
+    time, the device's idle share), and the long text's first streamed
+    piece with the port's one chunk at a time against JAX's two in flight.
 
 Phases 2-4, 10 (a) and 12 (a) hold each kernel against its plain version;
 the main path whose launches the kernels' record counts is every serving
 request of phases 5-11, every solve of phase 12 and every batch of phase 13
 (counters set to 0 just before, read just after; in phase 11 each rank
 counts its own, in 13 (a) the bench's process, and the record sums them).
-Each phase's wall time is logged, and all of them at the end.
+On a core without a mesh every chunk batch is one CUDA-graph replay: the
+wrappers count at capture, the capture takes its counts back, and every
+replay adds the launches it recorded; phases 4-10, 12 and 13 check that
+each batch of the window was one replay (phase 11's ranks run eagerly,
+under a mesh). Each phase's wall time is logged, and all of them at the end.
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``. Weights are random, made from a seed, and
@@ -181,6 +207,7 @@ from __future__ import annotations
 
 import asyncio
 import concurrent.futures
+import contextlib
 import dataclasses
 import gc
 import json
@@ -550,10 +577,53 @@ def _perturbed_gates(params: dict, seed: int = 1) -> dict:
 
 
 def _reset_launches() -> None:
+    """Set the kernels' launch counters and the graphs' capture and replay
+    counters to 0."""
     from vietvoice_tts_tpu_torch.ops.kernels import flash_attention as fa
     from vietvoice_tts_tpu_torch.ops.kernels import fused_rope_attention as fra
+    from vietvoice_tts_tpu_torch.runtime import graphs
 
     fra.launches = fa.launches = 0
+    graphs.captures = graphs.replays = 0
+
+
+def _check_replays(label: str, batches: int) -> None:
+    """Every chunk batch since ``_reset_launches`` was one CUDA-graph replay:
+    the launches those checks count came through replays, and a batch that
+    ran eagerly would have launched without one."""
+    from vietvoice_tts_tpu_torch.runtime import graphs
+
+    if graphs.replays != batches:
+        raise AssertionError(f"{label}: {graphs.replays} graph replays for {batches} batches")
+
+
+# A CUDA graph's replay against the eager program bodies, max-abs of the mel
+# latent (the same kernels in the same order: 0 on an H100, PERF.md).
+LATENT_TOLERANCE = {"float32": 1e-4, "bfloat16": 5e-2}
+
+
+@contextlib.contextmanager
+def _eager(core):
+    """The core's chunk programs run eagerly inside: its graphs set aside."""
+    graphs, core.graphs = core.graphs, None
+    try:
+        yield
+    finally:
+        core.graphs = graphs
+
+
+def _pcm_gap(tag: str, label: str, got, want, card: str) -> None:
+    """A graph replay's int16 PCM against the eager program bodies', held to
+    STREAM_TOLERANCE (the batched-vs-alone gate); printed either way."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{tag} {label}: {got.shape} samples, eager {want.shape}")
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    max_diff, mean_diff = int(diff.max()), float(diff.mean())
+    log(f"{tag} {label}, graph replay vs eager int16 PCM: largest difference {max_diff} "
+        f"(tol {STREAM_TOLERANCE[0]}), mean {mean_diff:.4f} (tol {STREAM_TOLERANCE[1]}) "
+        f"[{card}]")
+    if max_diff > STREAM_TOLERANCE[0] or mean_diff > STREAM_TOLERANCE[1]:
+        raise AssertionError(f"{tag} {label}: replay outside STREAM_TOLERANCE of eager")
 
 
 def _launches() -> dict:
@@ -564,9 +634,12 @@ def _launches() -> dict:
 
 
 def _kernel_vs_plain_latent(label, cfg, params, vocab_size, args, x0, total_len,
-                            route, want_launches, card) -> None:
-    """One config's mel latent with the kernel and with the plain path, in
-    both dtypes; ``route`` names the kernel that must do all the launches."""
+                            route, want_launches, card, against_eager=False) -> None:
+    """One config's mel latent with the kernel (one graph replay, the main
+    path) and with the plain path (eager, a comparison), in both dtypes;
+    ``route`` names the kernel that must do all the launches. With
+    ``against_eager`` the kernel's replay is also held against the eager
+    program bodies of the same core (LATENT_TOLERANCE)."""
     import torch
 
     from vietvoice_tts_tpu_torch.runtime.engine_core import EngineCore
@@ -580,7 +653,8 @@ def _kernel_vs_plain_latent(label, cfg, params, vocab_size, args, x0, total_len,
             core.dit.cfg = dataclasses.replace(core.dit.cfg, use_kernels=use_kernels)
             _reset_launches()
             t0 = time.perf_counter()
-            lat = core.mel_latent_batch(*args, x0=x0)
+            with contextlib.nullcontext() if use_kernels else _eager(core):
+                lat = core.mel_latent_batch(*args, x0=x0)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             got = _launches()
@@ -589,12 +663,21 @@ def _kernel_vs_plain_latent(label, cfg, params, vocab_size, args, x0, total_len,
                 raise AssertionError(
                     f"{label} {dtype} use_kernels={use_kernels}: launches {got}, want {want}"
                 )
+            _check_replays(f"{label} {dtype} use_kernels={use_kernels}", int(use_kernels))
+            if use_kernels and against_eager:
+                with _eager(core):
+                    eager = core.mel_latent_batch(*args, x0=x0)
+                err = float(np.abs(lat - eager).max())
+                log(f"[4] {label} {dtype} mel latent, graph replay vs eager program: max-abs "
+                    f"{err:.3e} (tol {LATENT_TOLERANCE[dtype]:.0e}) [{card}]")
+                if not err <= LATENT_TOLERANCE[dtype]:
+                    raise AssertionError(f"{label} {dtype}: replay vs eager {err:.3e}")
             if lat.shape != x0.shape or not np.isfinite(lat).all():
                 raise AssertionError(f"{label}: bad {dtype} latent, shape {lat.shape}")
             latents[use_kernels] = lat[:, :total_len]
             log(f"[4] {label} {dtype} mel latent, use_kernels={use_kernels}: "
-                f"{wall * 1e3:.1f} ms ({'first' if use_kernels else 'second'} solve of the "
-                f"core), launches {got}, max |latent| {np.abs(lat).max():.3f} [{card}]")
+                f"{wall * 1e3:.1f} ms ({'the capture and a replay' if use_kernels else 'eager'}"
+                f"), launches {got}, max |latent| {np.abs(lat).max():.3f} [{card}]")
         del core
         torch.cuda.empty_cache()
         diff = np.abs(latents[True] - latents[False])
@@ -633,20 +716,20 @@ def phase_whole_path(cfg, cfg32, card: str) -> None:
     full_evals = -(-evals // 2)  # every second eval, the first included
     runs = [
         # The default model: the fused RoPE kernel in every block and step.
-        ("8x128", cfg, "fused_rope", depth * evals),
+        ("8x128", cfg, "fused_rope", depth * evals, True),
         # The same widths split 32 × 32: the split-heads route.
-        ("32x32", cfg32, "flash", depth * evals),
+        ("32x32", cfg32, "flash", depth * evals, True),
         # CFG cache: doubled and cond-only evals alike launch once per block.
         ("32x32 uncond_interval=2",
-         dataclasses.replace(cfg32, nfe_uncond_interval=2), "flash", depth * evals),
+         dataclasses.replace(cfg32, nfe_uncond_interval=2), "flash", depth * evals, False),
         # Deep-block cache: full depth every second eval, 7 blocks between.
         ("32x32 deep_cache_interval=2",
          dataclasses.replace(cfg32, nfe_deep_cache_interval=2, nfe_deep_cache_blocks=shallow),
-         "flash", full_evals * depth + (evals - full_evals) * shallow),
+         "flash", full_evals * depth + (evals - full_evals) * shallow, False),
     ]
-    for label, run_cfg, route, want in runs:
+    for label, run_cfg, route, want, against_eager in runs:
         _kernel_vs_plain_latent(label, run_cfg, params, mgr.vocab_size, args, x0,
-                                total_len, route, want, card)
+                                total_len, route, want, card, against_eager)
 
 
 def _write_clone_wav(path: Path, sample_rate: int) -> None:
@@ -771,6 +854,7 @@ def phase_serving(cfg, cfg32, smi: str) -> tuple[dict, dict]:
     launches = _launches()
     if launches != {"fused_rope": expected, "flash": 0}:
         raise AssertionError(f"8x128 serving launched {launches}, want {expected} fused_rope")
+    _check_replays("8x128 serving", expected // per_batch)
     log(f"[5] 8x128 serving: {expected} fused_rope launches ({per_batch} per chunk "
         "batch and per streamed chunk), short request deterministic")
     api.cleanup()
@@ -783,6 +867,7 @@ def phase_serving(cfg, cfg32, smi: str) -> tuple[dict, dict]:
     launches32 = _launches()
     if launches32 != {"fused_rope": 0, "flash": n_batches * per_batch}:
         raise AssertionError(f"32x32 serving launched {launches32}")
+    _check_replays("32x32 serving", n_batches)
     log(f"[5] 32x32 serving: {launches32['flash']} flash launches")
     api32.cleanup()
     return {"fused_rope": launches["fused_rope"], "flash": launches32["flash"]}, outputs
@@ -868,6 +953,7 @@ def _concurrent_round(label, api, texts, smi, route, per_batch):
     if got[route] != batches * per_batch or got[other] != 0:
         raise AssertionError(
             f"{label}: launches {got}, want {batches} batches × {per_batch} of {route}")
+    _check_replays(label, batches)
     secs = sum(w.size for w in waves.values()) / api.config.sample_rate
     log(f"[6] {label}: {len(texts)} requests in {wall * 1e3:.1f} ms wall, {secs:.2f} s audio, "
         f"{secs / wall:.2f} audio-s/s; {batches} batches, mean batch size "
@@ -898,6 +984,7 @@ def _depth_round(engine, text, n_jobs, depth, smi) -> int:
                 lambda f: done.setdefault(id(f), time.perf_counter() - t0))
         for _, job in jobs:
             _check_wave(f"depth {depth}", job.future.result(timeout=300))
+        _check_replays(f"depth {depth}", engine.batcher.stats.batches)
         times = sorted(done.values())
         stats = engine.batcher.stats
         if stats.failures or stats.retries or stats.jobs != n_jobs:
@@ -988,6 +1075,7 @@ def phase_batcher(cfg, cfg32, smi: str, solo: dict) -> dict:
     batches = batcher.stats.batches - before
     if len(pieces) < 2 or got != {"fused_rope": batches * per_batch, "flash": 0}:
         raise AssertionError(f"(c): {len(pieces)} pieces, {batches} batches, launches {got}")
+    _check_replays("(c) long streamed", batches)
     total += got["fused_rope"]
     log(f"[6] (c) long streamed through the batcher: {len(pieces)} pieces, first after "
         f"{first_piece * 1e3:.1f} ms, all after {wall * 1e3:.1f} ms, {batches} batch(es) [{smi}]")
@@ -1052,17 +1140,20 @@ def phase_cli(cfg, smi: str) -> None:
         device = re.search(r"^Device: (\w+)", proc.stdout, re.M)
         launched = re.search(r"fused_qkv_rope_attention=(\d+), flash_attention=(\d+)", proc.stdout)
         took = re.search(r"Generation took ([\d.]+)s", proc.stdout)
-        if not (device and launched and took):
+        graphed = re.search(r"Chunk graphs: (\d+) captured, (\d+) replays", proc.stdout)
+        if not (device and launched and took and graphed):
             raise AssertionError(f"CLI ({name}) printed no device report:\n{proc.stdout[-2000:]}")
         if device.group(1) != "cuda" or launched.groups() != (str(per_batch), "0"):
             raise AssertionError(f"CLI ({name}): device {device.group(1)}, launches {launched.groups()}")
+        if graphed.groups() != ("1", "1"):
+            raise AssertionError(f"CLI ({name}): graphs {graphed.group(0)}, want one of each")
         with wave_file.open(str(out), "rb") as fh:
             fmt = (fh.getframerate(), fh.getnchannels(), fh.getsampwidth())
             pcm = np.frombuffer(fh.readframes(fh.getnframes()), "<i2")
         if fmt != (cfg.sample_rate, 1, 2) or pcm.size == 0 or not np.any(pcm):
             raise AssertionError(f"CLI ({name}): WAV {fmt}, {pcm.size} samples")
         log(f"[7] CLI, {name}: exit 0 in {wall:.1f} s wall (generation {took.group(1)} s), "
-            f"device cuda, {launched.group(1)} fused_rope launches, "
+            f"device cuda, {launched.group(1)} fused_rope launches in one graph replay, "
             f"{pcm.size / cfg.sample_rate:.2f} s of 24 kHz mono int16 [{smi}]")
 
 
@@ -1144,6 +1235,7 @@ def phase_rest(cfg, smi: str) -> int:
     got = _launches()
     if got != {"fused_rope": batcher["batches"] * per_batch, "flash": 0}:
         raise AssertionError(f"REST: launches {got} for {batcher['batches']} batches")
+    _check_replays("REST", batcher["batches"])
     log(f"[8] REST in process: health cuda / 1 device; four /synthesize posts gathered in "
         f"{wall * 1e3:.1f} ms (engine load and first use included); /synthesize/stream "
         f"{n_pieces} pieces; batcher {batcher}; cond cache {stats['cond_cache']}; "
@@ -1361,6 +1453,7 @@ def phase_training(cfg, smi: str) -> int:
     _check_wave("(c) trained pack", wave)
     if got != {"fused_rope": n_batches * per_batch, "flash": 0}:
         raise AssertionError(f"(c) serving the trained pack launched {got}")
+    _check_replays("(c) trained pack", n_batches)
     log(f"[9] (c) TTSApi on the trained pack: {wave.size / cfg.sample_rate:.2f} s of int16, "
         f"peak |sample| {int(np.abs(wave.astype(np.int32)).max())}, {got['fused_rope']} "
         f"fused_rope launches; {time.perf_counter() - t0:.1f} s wall with the pack's load "
@@ -1477,6 +1570,7 @@ def _f5_rehearsal(smi: str) -> None:
             if got != expect:
                 raise AssertionError(f"(a) {dtype} use_kernels={use_kernels}: launches "
                                      f"{got}, want {expect}")
+            _check_replays(f"(a) {dtype} use_kernels={use_kernels}", 1)
             if not np.isfinite(latent).all():
                 raise AssertionError(f"(a) {dtype}: latent not finite")
             latents[use_kernels] = latent
@@ -1575,7 +1669,8 @@ def _native_crossfade(api, smi: str) -> int:
         raise AssertionError(f"(c) native joins {blocking_joins}, {stream_joins}; "
                              f"want {chunks - 1} each")
     per_batch = api.engine.config.dit_depth * (api.engine.config.nfe_step - 1)
-    want = per_batch * (batches + chunks)  # streaming dispatches one chunk at a time
+    want = per_batch * (batches + chunks)  # streaming dispatches a chunk a batch
+    _check_replays("(c) blocking and streamed", batches + chunks)
     if blocking_launches["fused_rope"] != per_batch * batches or launches != {
             "fused_rope": want, "flash": 0}:
         raise AssertionError(f"(c) launches {blocking_launches}, {launches}")
@@ -1686,6 +1781,7 @@ def phase_conversion(smi: str) -> int:
             if got != {"fused_rope": per_batch * batches, "flash": 0}:
                 raise AssertionError(f"(b) {label}: launches {got}, want "
                                      f"{per_batch * batches} of kernel 1")
+            _check_replays(f"(b) {label}", batches)
             _check_wave(f"(b) {label}", wave)
             launches_total += got["fused_rope"]
             waves.append(wave)
@@ -1694,6 +1790,11 @@ def phase_conversion(smi: str) -> int:
                 f"peak {int(np.abs(wave).max())}, launches {got} [{smi}]")
         if not np.array_equal(waves[0], waves[1]):
             raise AssertionError("(b) the same request twice gave different audio")
+        # Phase 14 (a) at the F5 head shape: the replay against the eager
+        # program bodies of the same core.
+        with _eager(api.engine.engine_core):
+            eager, _ = api.synthesize(SHORT_TEXT)
+        _pcm_gap("[10] (b)", "16x64 F5 pack short sentence", waves[1], eager, smi)
         log(f"[10] (b) done in {time.perf_counter() - t_b:.1f} s")
         launches_total += _native_crossfade(api, smi)
     log(f"[10] done in {time.perf_counter() - t_phase:.1f} s [{smi}]")
@@ -2220,11 +2321,12 @@ P12_DRIFT_FRAMES = (384, 448, 512, 704)  # the JAX harness's default buckets
 P12_HELD_MIB = 16  # device memory a harness call may leave allocated behind it
 
 
-def _counted(label: str, fn, want: int):
+def _counted(label: str, fn, want: int, solves: int):
     """``fn()`` with the launch counters set to 0 just before and read just
     after → (its result, wall s); kernel 1 must launch exactly ``want``
-    times and kernel 2 never, and the cores ``fn`` built must be released
-    (device memory back to where it was)."""
+    times and kernel 2 never, each of the ``solves`` must be one graph
+    replay, and the cores ``fn`` built must be released (device memory
+    back to where it was)."""
     import torch
 
     held = torch.cuda.memory_allocated()
@@ -2236,6 +2338,7 @@ def _counted(label: str, fn, want: int):
     got = _launches()
     if got != {"fused_rope": want, "flash": 0}:
         raise AssertionError(f"[12] {label}: launches {got}, want {want} of kernel 1")
+    _check_replays(f"[12] {label}", solves)
     gc.collect()  # an EngineCore holds reference cycles: only the collector frees it
     left = (torch.cuda.memory_allocated() - held) / 2**20
     if left > P12_HELD_MIB:
@@ -2274,7 +2377,7 @@ def _sweep_ref(pack: Path, per_solve: int, card: str) -> dict:
     }
     (latent, _), wall = _counted(
         "f32 exact reference",
-        lambda: torch_latent(pack, ref, device="cuda", compute_dtype="float32"), per_solve)
+        lambda: torch_latent(pack, ref, device="cuda", compute_dtype="float32"), per_solve, 1)
     if not np.isfinite(latent).all():
         raise AssertionError("[12] the f32 reference latent is not finite")
     log(f"[12] reference: {len(audio) / 24000:.2f} s clip, {ref['ref_signal_len']} reference "
@@ -2299,7 +2402,7 @@ def _kernel_vs_plain_at_depth(pack: Path, ref: dict, per_solve: int, depth: int,
             f"(a) {dtype} use_kernels={use_kernels}",
             lambda: torch_latent(pack, ref, device="cuda", compute_dtype=dtype,
                                  use_kernels=use_kernels),
-            per_solve if use_kernels else 0)
+            per_solve if use_kernels else 0, 1)
         if not np.isfinite(latent).all():
             raise AssertionError(f"[12] (a) {dtype} use_kernels={use_kernels}: not finite")
         latents[dtype, use_kernels] = latent
@@ -2398,7 +2501,8 @@ def phase_sweeps(card: str) -> int:
     want = 2 * len(P12_DRIFT_FRAMES) * per_solve
     drift, wall = _counted("(a) precision_drift",
                            lambda: precision_drift(pack, frames=P12_DRIFT_FRAMES,
-                                                   device="cuda"), want)
+                                                   device="cuda"), want,
+                           2 * len(P12_DRIFT_FRAMES))
     total += want
     log(f"[12] (a) precision_drift, compute {drift['compute_dtype']} vs float32, "
         f"{drift['ref_frames']} reference frames: {wall:.1f} s, {want} kernel-1 launches [{card}]")
@@ -2420,7 +2524,8 @@ def phase_sweeps(card: str) -> int:
     want = (1 + P12_REPEATS) * sum(_deep_cache_evals(depth, steps, r, j) for r, j in P12_DEEP)
     deep, wall = _counted("(b) deep_cache_sweep",
                           lambda: deep_cache_sweep(pack, ref, settings=P12_DEEP,
-                                                   repeats=P12_REPEATS, device="cuda"), want)
+                                                   repeats=P12_REPEATS, device="cuda"), want,
+                          (1 + P12_REPEATS) * len(P12_DEEP))
     total += want
     log(f"[12] (b) deep_cache_sweep, bf16, bucket {deep['frames']}, best of {P12_REPEATS}: "
         f"{wall:.1f} s, {want} kernel-1 launches, peak device memory "
@@ -2436,7 +2541,8 @@ def phase_sweeps(card: str) -> int:
     want = (1 + P12_REPEATS) * len(P12_CFG) * per_solve
     cfgc, wall = _counted("(c) cfg_cache_sweep",
                           lambda: cfg_cache_sweep(pack, ref, intervals=P12_CFG,
-                                                  repeats=P12_REPEATS, device="cuda"), want)
+                                                  repeats=P12_REPEATS, device="cuda"), want,
+                          (1 + P12_REPEATS) * len(P12_CFG))
     total += want
     log(f"[12] (c) cfg_cache_sweep, bf16, bucket {cfgc['frames']}, best of {P12_REPEATS}: "
         f"{wall:.1f} s, {want} kernel-1 launches (a cond-only evaluation is still one "
@@ -2492,7 +2598,7 @@ def phase_sweeps(card: str) -> int:
     settings += [(f"cfg k={k}", {"uncond_interval": k}, per_solve) for k in P12_CFG[1:]]
     want = (2 + P12_ROUNDS) * sum(evals for _, _, evals in settings)
     rows, wall = _counted("(e) interleaved", lambda: _interleaved_prices(pack, ref, settings),
-                          want)
+                          want, (2 + P12_ROUNDS) * len(settings))
     total += want
     log(f"[12] (e) {len(settings)} settings on one bf16 core, bucket {P12_FRAMES}, {P12_ROUNDS} "
         f"interleaved rounds and one traced solve each: {wall:.1f} s, {want} kernel-1 "
@@ -2509,6 +2615,286 @@ def phase_sweeps(card: str) -> int:
     log(f"[12] done in {time.perf_counter() - t_phase:.1f} s, {total} kernel-1 launches "
         f"[{card}]")
     return total
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the captured chunk programs (runtime/graphs.py) against their
+# eager runs, on the card, at the serving path's shapes.
+# ---------------------------------------------------------------------------
+
+P14_BIG = (8, 1024, 250)  # (batch, frames, reference frames): the bench's batch 8
+P14_ROUNDS = 5  # (d)'s interleaved rounds of eager and graph
+P14_REPLAYS = 2  # (c)'s timed replays of each graph
+
+
+@contextlib.contextmanager
+def _waveform_route(core):
+    """The voice-conditioning cache off inside: every batch takes the
+    waveform route."""
+    core.config.voice_cond_cache = False
+    try:
+        yield
+    finally:
+        core.config.voice_cond_cache = True
+
+
+def _chunk_inputs(engine, text: str, **voice) -> tuple:
+    """The one padded row a single-chunk request dispatches: (wave, ref_len,
+    text_ids, total_len), planned as ``TTSEngine`` plans it."""
+    ref_audio, ref_text = engine.model_session_manager.select_sample(**voice)
+    ref = engine._load_ref(ref_audio).astype(np.float32) / 32768.0
+    (plan,) = engine._plan_chunks(ref, ref_text, text)
+    wave, ids = engine._chunk_row(plan, ref)
+    return wave[None], np.array([plan.ref_len]), ids[None], np.array([plan.total_len])
+
+
+def _replay_vs_eager(label: str, core, args, seed, card: str, route=contextlib.nullcontext):
+    """The batch through its graph twice (captured at the first call unless
+    it was already) and through the eager program bodies once; returns the
+    eager PCM."""
+    from vietvoice_tts_tpu_torch.runtime import graphs
+
+    replays = graphs.replays
+    with route(core):
+        first = core.synthesize_batch(*args, seed=seed)
+        again = core.synthesize_batch(*args, seed=seed)
+        with _eager(core):
+            eager = core.synthesize_batch(*args, seed=seed)
+    if graphs.replays - replays != 2:
+        raise AssertionError(f"[14] {label}: {graphs.replays - replays} replays for 2 batches")
+    _check_wave(f"[14] {label}", eager[0])
+    _pcm_gap("[14] (a)", f"{label}, first replay", first, eager, card)
+    _pcm_gap("[14] (a)", f"{label}, second replay", again, eager, card)
+    return eager
+
+
+def _graph_table(core, card: str) -> None:
+    """(c) Per captured shape: capture wall, graph nodes (kernels), attention
+    launches, replay device ms (CUDA events) and the host's ms to launch
+    the replay."""
+    import torch
+
+    for key, entry in core.graphs.entries.items():
+        device_ms, host_ms = [], []
+        for _ in range(P14_REPLAYS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            t0 = time.perf_counter()
+            entry.graph.replay()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            end.record()
+            end.synchronize()
+            device_ms.append(start.elapsed_time(end))
+        route, b, n = key[:3]
+        log(f"[14] (c) graph {route} B={b} N={n} {key[3].compute_dtype}: capture "
+            f"{entry.capture_s:.2f} s (eager run and capture), {entry.graph.nodes} nodes "
+            f"({entry.graph.kernel_nodes} kernels), attention launches {entry.launches}; "
+            f"replay device {statistics.median(device_ms):.2f} ms, host "
+            f"{statistics.median(host_ms):.3f} ms to launch it (median of {P14_REPLAYS}) "
+            f"[{card}]")
+
+
+def _latency_b1(api, core, short, card: str) -> None:
+    """(d) Batch 1, eager and graph interleaved in this call: the short
+    request, its one chunk, the host's dispatch of that chunk, and
+    ``compute_ms_b1`` (the bench's compute leg: bucket 384, inputs already on
+    the card); then one traced chunk of each, its device time and the
+    device's idle share of the chunk's median."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vietvoice_tts_tpu_torch.bench import _batched_inputs
+
+    hop = core.config.hop_length
+    on_card = [core._to_device(a, dt) for a, dt in zip(
+        _batched_inputs(1, 384, 188, hop), (np.float32, np.int64, np.int64, np.int64))]
+
+    def compute_b1():
+        with torch.inference_mode(), core._numerics():
+            core._run("pcm", core._waveform_program, *on_card, core._noise([0], 384))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def dispatch():
+        t0 = time.perf_counter()
+        fetch = core.synthesize_batch_async(*short, seed=0)
+        ms = (time.perf_counter() - t0) * 1e3
+        fetch()
+        return ms
+
+    chunk = f"its chunk (batch 1, bucket {short[2].shape[1]})"
+    legs = {
+        "short request": lambda: timed(lambda: api.synthesize(SHORT_TEXT)),
+        chunk: lambda: timed(lambda: core.synthesize_batch(*short, seed=0)),
+        "host dispatch of the chunk": dispatch,
+        "compute_ms_b1 (bucket 384)": lambda: timed(compute_b1),
+    }
+    modes = {"graph": contextlib.nullcontext, "eager": lambda: _eager(core)}
+    times = {(m, leg): [] for m in modes for leg in legs}
+    for mode, ctx in modes.items():
+        with ctx():
+            for fn in legs.values():
+                fn()  # warm: the graph of bucket 384 is captured here
+    for rnd in range(P14_ROUNDS):
+        for mode in (("graph", "eager") if rnd % 2 == 0 else ("eager", "graph")):
+            with modes[mode]():
+                for leg, fn in legs.items():
+                    times[mode, leg].append(fn())
+    for leg in legs:
+        g, e = (statistics.median(times[m, leg]) for m in ("graph", "eager"))
+        log(f"[14] (d) {leg}: graph {g:.1f} ms, eager {e:.1f} ms (medians of {P14_ROUNDS} "
+            f"interleaved; graph {' '.join(f'{t:.1f}' for t in times['graph', leg])}; eager "
+            f"{' '.join(f'{t:.1f}' for t in times['eager', leg])}), eager/graph {e / g:.2f} "
+            f"[{card}]")
+    for mode, ctx in modes.items():
+        with ctx():
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                core.synthesize_batch(*short, seed=0)
+                torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0
+                   and not getattr(e, "is_user_annotation", False) and "#" not in e.key]
+        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        chunk_ms = statistics.median(times[mode, chunk])
+        idle = (f"idle {100 * (1 - device_ms / chunk_ms):.1f}% of the chunk's median "
+                f"{chunk_ms:.1f} ms" if device_ms else "the profiler recorded no device time")
+        log(f"[14] (d) traced batch-1 chunk, {mode}: device kernels {device_ms:.1f} ms in "
+            f"{sum(e.count for e in kernels)} launches; {idle} [{card}]")
+
+
+def _first_piece(engine, card: str) -> None:
+    """(d) Streaming's first piece with the port's one dispatch at a time
+    (``TTSEngine._iter_chunk_waves``: chunk k reaches the caller before
+    chunk k+1 is dispatched) against the JAX engine's two in flight (chunk
+    k+1 dispatched before chunk k is fetched, JAX ``pipeline/engine.py:
+    436-458``), interleaved over P14_ROUNDS, for the long text with the
+    bench's 4 s head chunk and without."""
+    import torch
+
+    ref_audio, ref_text = engine.model_session_manager.select_sample()
+    ref = engine._load_ref(ref_audio).astype(np.float32) / 32768.0
+    core = engine.engine_core
+
+    def dispatch(p):
+        wave, ids = engine._chunk_row(p, ref)
+        return core.synthesize_batch_async(
+            wave[None], np.asarray([p.ref_len], np.int32), ids[None],
+            np.asarray([p.total_len], np.int32), seed=np.asarray([p.index], np.uint32))
+
+    def two_in_flight(plans):
+        inflight = []
+        for p in plans:
+            inflight.append(dispatch(p))
+            if len(inflight) == 2:
+                yield inflight.pop(0)()
+        for fetch in inflight:
+            yield fetch()
+
+    modes = {"one at a time": lambda plans: engine._iter_chunk_waves(plans, ref),
+             "two in flight": two_in_flight}
+    for cap in (None, 4.0):
+        plans = engine._plan_chunks(ref, ref_text, LONG_TEXT, first_chunk_cap=cap)
+        times = {m: [] for m in modes}
+        for rnd in range(P14_ROUNDS + 1):  # round 0 warms the shapes
+            for mode in (list(modes) if rnd % 2 else list(modes)[::-1]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pieces = modes[mode](plans)
+                next(pieces)
+                first = (time.perf_counter() - t0) * 1e3
+                for _ in pieces:
+                    pass
+                if rnd:
+                    times[mode].append(first)
+        head = f"{plans[0].bucket}-frame head chunk" + (" (4 s cap)" if cap else "")
+        log(f"[14] (d) first streamed piece, {len(plans)} chunks, {head}: "
+            + "; ".join(f"{m} {statistics.median(t):.1f} ms ({' '.join(f'{x:.1f}' for x in t)})"
+                        for m, t in times.items())
+            + f" (medians of {P14_ROUNDS} interleaved) [{card}]")
+
+
+def phase_graphs(cfg, card: str) -> None:
+    """Phase 14: (a) replay against eager on the same core and inputs at the
+    serving shapes, both routes (phases 4, 10 (b) and 13 (c) hold the mel
+    latent, the 32 × 32 and 16 × 64 routes and batch 32 × 512 alike); (b)
+    replays out of capture order with two fetches of one shape outstanding;
+    (c) each graph's capture, size and replay times, and the device memory
+    a warm-up of the serving grid takes; (d) batch-1 latency eager against
+    graph, interleaved, and the first streamed piece with one chunk in
+    flight against two."""
+    import torch
+
+    from vietvoice_tts_tpu_torch import TTSApi
+    from vietvoice_tts_tpu_torch.bench import _batched_inputs
+    from vietvoice_tts_tpu_torch.runtime.engine_core import EngineCore
+
+    api = TTSApi(cfg)
+    engine = api.engine
+    params = _perturbed_gates(engine.model_session_manager.params)
+    vocab = engine.model_session_manager.vocab_size
+    # Opened AdaLN gates, so that attention reaches the output.
+    engine.engine_core = core = EngineCore(cfg, params, vocab)
+    hop = cfg.hop_length
+    clone_voice = {"reference_audio": str(WORK / "clone_voice.wav"),
+                   "reference_text": CLONE_REFERENCE_TEXT}
+    short = _chunk_inputs(engine, SHORT_TEXT)
+    clone = _chunk_inputs(engine, CLONE_TEXT, **clone_voice)
+    bucket = short[2].shape[1]
+
+    # (c) The serving grid of the short request's bucket: every batch size
+    # the micro-batcher dispatches, and the waveform route at batch 1.
+    gc.collect()
+    torch.cuda.empty_cache()  # as every capture does on entering
+    torch.cuda.synchronize()
+    reserved0 = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    engine.warmup(buckets=(bucket,))
+    torch.cuda.synchronize()
+    log(f"[14] (c) warmup of bucket {bucket} × batches {cfg.batch_grid()} (+ the waveform "
+        f"route at batch 1): {core.graph_captures} graphs captured in "
+        f"{time.perf_counter() - t0:.1f} s; device memory reserved "
+        f"{reserved0 / 2**30:.2f} → {torch.cuda.memory_reserved() / 2**30:.2f} GiB [{card}]")
+
+    # (a) Replay against eager at the serving shapes.
+    eager = {}
+    for label, args in (("short", short), ("clone", clone)):
+        for route, ctx in (("cached conditioning", contextlib.nullcontext),
+                           ("waveform", _waveform_route)):
+            eager[label, route] = _replay_vs_eager(
+                f"8x128 {label} ({args[2].shape[1]} frames), {route}", core, args, 0, card, ctx)
+    b, n, ref = P14_BIG
+    _replay_vs_eager(f"8x128 batch {b} × {n}", core, _batched_inputs(b, n, ref, hop), 1, card)
+
+    # (b) Out of capture order, two fetches of one shape outstanding.
+    with _eager(core):
+        eager["short", "seed 5"] = core.synthesize_batch(*short, seed=5)
+    order = [("clone", "cached conditioning", clone, 0, contextlib.nullcontext),
+             ("short", "seed 5", short, 5, contextlib.nullcontext),
+             ("short", "cached conditioning", short, 0, contextlib.nullcontext),
+             ("short", "waveform", short, 0, _waveform_route)]
+    fetches = []
+    for label, route, args, seed, ctx in order:
+        with ctx(core):
+            fetches.append((label, route, core.synthesize_batch_async(*args, seed=seed)))
+    for label, route, fetch in reversed(fetches):
+        got, want = fetch(), eager[label, route]
+        if not np.array_equal(got, want):
+            _pcm_gap("[14] (b)", f"{label} {route}, interleaved", got, want, card)
+    log(f"[14] (b) four batches of three graphs dispatched out of capture order, two of one "
+        f"shape outstanding, fetched in reverse: each equal to its own eager run [{card}]")
+
+    _graph_table(core, card)
+    _latency_b1(api, core, short, card)
+    _first_piece(engine, card)
+    api.cleanup()
 
 
 # ---------------------------------------------------------------------------
@@ -2574,12 +2960,14 @@ def finish_bench_process(started, cfg, smi: str) -> int:
     record = json.loads(full_out.read_text())
     launches = record["launches"]
     fused, flash = launches["fused_qkv_rope_attention"], launches["flash_attention"]
-    if flash != 0 or fused <= 0 or fused % per_batch:
-        raise AssertionError(f"bench's launches {launches}, want a multiple of {per_batch}")
+    if flash != 0 or fused <= 0 or fused != per_batch * record["graphs"]["replays"]:
+        raise AssertionError(f"bench's launches {launches}, want {per_batch} per graph replay "
+                             f"({record['graphs']})")
     log(f"[13] (a) bench --skip-rest: exit 0, {wall:.1f} s from its start (beside phase 11: "
         f"no time of this run is a measurement); {len(last)} characters: {last} [{smi}]")
     log(f"[13] (a) full record {full_out.relative_to(ROOT)}: {fused} kernel-1 launches "
-        f"({fused // per_batch} batches) [{smi}]")
+        f"({fused // per_batch} batches, each one graph replay; graphs {record['graphs']}) "
+        f"[{smi}]")
     return fused
 
 
@@ -2618,6 +3006,7 @@ def _bench_rest(api, per_batch: int, smi: str) -> int:
                 raise AssertionError(f"(b) {label}: {stats}")
             if got != {"fused_rope": stats.batches * per_batch, "flash": 0}:
                 raise AssertionError(f"(b) {label}: launches {got} for {stats.batches} batches")
+            _check_replays(f"(b) {label}", stats.batches)
             if "mode" not in point and not point["mean_batch_size"] > 1:
                 raise AssertionError(f"(b) {label}: mean batch size {point['mean_batch_size']}")
             total += got["fused_rope"]
@@ -2646,6 +3035,12 @@ def _bench_batch_row(api, per_batch: int, smi: str) -> int:
     got = _launches()
     if got != {"fused_rope": 2 * per_batch, "flash": 0}:
         raise AssertionError(f"(c) launches {got}")
+    _check_replays("(c) batch row", 2)
+    # Phase 14 (a) at batch 32 × 512: the batch's replay against the eager
+    # program bodies of the same core.
+    with _eager(core):
+        eager = core.synthesize_batch(wave, ref_len, ids, total, seed=1)
+    _pcm_gap("[13] (c)", f"8x128 batch {batch} × {frames}", rows, eager, smi)
     _check_wave("(c) batch row 0", rows[0])
     diff = np.abs(rows[0].astype(np.int32) - alone[0].astype(np.int32))
     max_diff, mean_diff = int(diff.max()), float(diff.mean())
@@ -2720,6 +3115,8 @@ def main() -> int:
     rest_launches = phase(8, phase_rest, cfg, smi)
     trained_launches = phase(9, phase_training, cfg, smi)
     converted_launches = phase(10, phase_conversion, smi)
+    # Replay against eager on an idle card, after phase 10 made the 16 × 64 pack.
+    phase(14, phase_graphs, cfg, card)
     # 13 (a), the bench's own process, runs beside phase 11 and is awaited
     # before phase 12, whose times must be the card's alone.
     bench = start_bench_process()

@@ -168,7 +168,9 @@ def test_stream_equals_blocking_with_opened_gates(tiny_pack_dir):
 
 def test_each_chunk_is_yielded_before_the_next_is_dispatched(engine, monkeypatch):
     """One single-row dispatch at a time: the caller has chunk k before the
-    host starts queueing chunk k+1 (see TTSEngine._iter_chunk_waves)."""
+    host starts queueing chunk k+1 (see TTSEngine._iter_chunk_waves; the JAX
+    engine's two in flight gave the first piece later on the card). Each
+    streamed chunk equals its blocking run."""
     events = []
     dispatch = engine.engine_core.synthesize_batch_async
 
@@ -189,10 +191,14 @@ def test_each_chunk_is_yielded_before_the_next_is_dispatched(engine, monkeypatch
     ref = engine._load_ref(ref_audio).astype(np.float32) / 32768.0
     plans = engine._plan_chunks(ref, ref_text, LONG)
     assert len(plans) >= 3
+    streamed = []
     for k, wave in enumerate(engine._iter_chunk_waves(plans, ref)):
         assert wave.dtype == np.int16 and wave.size
         assert events == [(kind, i) for i in range(k + 1) for kind in ("dispatch", "fetch")]
+        streamed.append(wave)
     assert len(events) == 2 * len(plans)
+    for got, want in zip(streamed, engine._run_chunks(plans, ref), strict=True):
+        np.testing.assert_array_equal(got, want)
 
 
 def test_async_batch_equals_blocking_batch(engine):

@@ -56,9 +56,11 @@ app = App()
 
 def _warmup_in_background() -> None:
     """Load the engine and run every (batch, bucket) shape once off the
-    request path. Enabled with WARMUP_ON_START=1; first requests then pay
-    neither the model load nor the kernels' build and the libraries' first
-    use."""
+    request path, which on the card captures each shape's CUDA graph.
+    Enabled with WARMUP_ON_START=1; first requests then pay neither the
+    model load nor a capture. Best effort: a shape whose capture fails here
+    is captured again by the first request that needs it, and that request
+    gets the error if it fails again (nothing falls back to eager)."""
     import threading
 
     def work():

@@ -37,8 +37,9 @@ Differences from the root harness:
   kernel copied back), with no retry: on the card a failing first operation
   is a failure; a slow probe flags the record (``weather``) and is not
   waited out, since the card's link has no slow phases;
-- the latency breakdown is built from ``EngineCore``'s own steps (the port
-  compiles no chunk program);
+- the latency breakdown runs ``EngineCore``'s waveform program on inputs
+  already on the card (on the card one replay of its CUDA graph), where the
+  root harness calls its compiled chunk program;
 - ``_rest_sweep_point``'s ``rtf`` counts the timed requests' audio only (the
   root harness adds the warm-up request's audio to a wall time that excludes
   it, an excess of (n+1)/n);
@@ -473,12 +474,12 @@ def bench_latency_breakdown(core, hop: int, n_frames: int = 384,
                 *(core._to_device(a, np.int64) for a in (ref_len, text_ids, total_len)))
 
     def run(wave_t, ref_t, ids_t, tot_t):
-        """The waveform route of ``EngineCore._pcm_batch`` → int16 PCM on the
-        device, queued and not waited for."""
+        """The waveform route of ``EngineCore._pcm_batch`` (on the card one
+        replay of its graph) → int16 PCM on the device, queued and not
+        waited for; copy it before the next call."""
         with torch.inference_mode(), core._numerics():
-            mel = core.frontend(wave_t)
-            return core._finish_waveform(
-                *core._sample_latent(mel, ref_t, ids_t, tot_t, [0], None))
+            x0 = core._noise([0], n_frames)
+            return core._run("pcm", core._waveform_program, wave_t, ref_t, ids_t, tot_t, x0)
 
     host = torch.empty((1, n_frames * hop), dtype=torch.int16,
                        pin_memory=device.type == "cuda")
@@ -700,6 +701,7 @@ def main(argv=None, config: ModelConfig | None = None) -> int:
         "configs": configs,
         "spread_ms": spread,
         "launches": kernel_launches(),
+        "graphs": {"captures": core.graph_captures, "replays": core.graph_replays},
     }
     full_out.parent.mkdir(parents=True, exist_ok=True)
     full_out.write_text(json.dumps(full_record, indent=1))

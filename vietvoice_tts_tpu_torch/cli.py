@@ -235,7 +235,7 @@ def kernel_launches() -> dict:
     }
 
 
-def _print_device_report(config: ModelConfig) -> None:
+def _print_device_report(config: ModelConfig, core) -> None:
     import torch
 
     device = torch.device(config.device)
@@ -245,6 +245,7 @@ def _print_device_report(config: ModelConfig) -> None:
         "Kernel launches: "
         + ", ".join(f"{k}={v}" for k, v in kernel_launches().items())
     )
+    print(f"Chunk graphs: {core.graph_captures} captured, {core.graph_replays} replays")
 
 
 def main() -> None:
@@ -291,7 +292,7 @@ def main() -> None:
         if lead:
             print(f"Synthesis complete! Generation took {duration:.2f}s")
             print(f"Output saved to: {args.output}")
-            _print_device_report(config)
+            _print_device_report(config, api.engine.engine_core)
     except Exception as e:  # noqa: BLE001 — CLI boundary
         print(f"Error: {e}", file=sys.stderr)
         sys.exit(1)

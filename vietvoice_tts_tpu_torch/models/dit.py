@@ -388,6 +388,15 @@ class DiT(nn.Module):
         inputs that require grad)."""
         return self.forward_embedded(x, cond, self.text_embed(text_ids), t, mask)
 
+    def attention_kernel(self, n: int) -> str | None:
+        """The kernel (its ``ops/kernels`` module name) that a forward at
+        ``n`` frames launches on CUDA tensors; None without ``use_kernels``."""
+        cfg = self.cfg
+        if not cfg.use_kernels:
+            return None
+        fused = fused_supports_shape(cfg.heads // cfg.tp, cfg.head_dim, n)
+        return "fused_rope_attention" if fused else "flash_attention"
+
     def _packed_attention(self, qkv, cos, sin, mask, heads: int) -> torch.Tensor:
         """Attention on packed qkv [B, N, 3·heads·D] → [B, N, heads·D], by
         the route the head shape picks; the wrappers decide between kernel

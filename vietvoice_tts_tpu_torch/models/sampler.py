@@ -21,7 +21,6 @@
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
 
 import numpy as np
@@ -57,16 +56,40 @@ def sway_time_grid(cfg: SamplerConfig) -> torch.Tensor:
     return t
 
 
-@functools.lru_cache(maxsize=16)
+# (SamplerConfig, device) → _time_grid_on's result. Never evicted: a CUDA
+# graph captured over a solve reads the start times by address.
+_TIME_GRIDS: dict = {}
+
+
 def _time_grid_on(cfg: SamplerConfig, device: torch.device):
     """(step sizes as Python floats, step start times on ``device``).
 
     Cached: a host-to-device copy from pageable memory first waits for the
     device to drain its stream, so a copy per solve (let alone per step)
-    would keep the host from queueing a solve behind a running one."""
-    t_grid = sway_time_grid(cfg)
-    with torch.inference_mode(False):
-        return torch.diff(t_grid).tolist(), t_grid[:-1].to(device)
+    would keep the host from queueing a solve behind a running one, and
+    inside a CUDA graph's capture it is an error."""
+    key = (cfg, _device_key(device))
+    hit = _TIME_GRIDS.get(key)
+    if hit is None:
+        t_grid = sway_time_grid(cfg)
+        with torch.inference_mode(False):
+            hit = torch.diff(t_grid).tolist(), t_grid[:-1].to(device)
+        _TIME_GRIDS[key] = hit
+    return hit
+
+
+def time_grid_cached(cfg: SamplerConfig, device) -> bool:
+    """Whether the solve's time grid already lies on ``device``: a capture
+    must find it there (``runtime/engine_core.py``)."""
+    return (cfg, _device_key(device)) in _TIME_GRIDS
+
+
+def _device_key(device) -> torch.device:
+    """``device`` with its index: ``cuda`` and ``cuda:0`` are one card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def row_noise(

@@ -129,16 +129,17 @@ def _on_device(arrays, device: torch.device):
 # The iSTFT's constants on the device, cached: copied from pageable host
 # memory on every call, each copy would first wait for the device to drain
 # its stream, and a batch could not be queued behind one that is still
-# running.
+# running. Never evicted: a CUDA graph captured over the vocoder reads them
+# by address.
 
 
-@lru_cache(maxsize=8)
+@lru_cache(maxsize=None)
 def _idft_constants(n_fft: int, device: torch.device):
     """(cos basis, sin basis, synthesis window) on ``device``."""
     return _on_device((*_idft_basis(n_fft), _hann_periodic(n_fft)), device)
 
 
-@lru_cache(maxsize=32)
+@lru_cache(maxsize=None)
 def _ola_envelope_on(n: int, n_fft: int, hop: int, device: torch.device):
     return _on_device((_ola_envelope(n, n_fft, hop),), device)[0]
 

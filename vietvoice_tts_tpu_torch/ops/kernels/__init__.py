@@ -16,3 +16,25 @@ def refuse_autograd(kernel: str, *inputs: torch.Tensor) -> None:
             "torch.no_grad() / torch.inference_mode(), or build the model with "
             "use_kernels=False to differentiate through the plain version"
         )
+
+
+# The modules whose wrappers count their launches (``<module>.launches``).
+KERNELS = ("fused_rope_attention", "flash_attention")
+
+
+def launch_counts() -> dict[str, int]:
+    """Each kernel's ``launches`` counter, by module name."""
+    import importlib
+
+    return {k: importlib.import_module(f"{__name__}.{k}").launches for k in KERNELS}
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Add ``counts`` (negative to take back) to the kernels' counters. A
+    captured CUDA graph launches its kernels without calling the wrappers:
+    ``runtime/graphs.py`` takes a capture's counts back and adds them again at
+    every replay."""
+    import importlib
+
+    for k, n in counts.items():
+        importlib.import_module(f"{__name__}.{k}").launches += n

@@ -109,6 +109,12 @@ def load_library(name: str) -> ctypes.CDLL:
         return lib
 
 
+def is_loaded(name: str) -> bool:
+    """Whether ``csrc/<name>.cu`` is built and loaded in this process."""
+    with _lock:
+        return name in _libraries
+
+
 def build_report(name: str) -> str:
     """What ``ptxas -v`` said when ``csrc/<name>.cu`` was built (registers,
     shared memory and spills of each kernel); builds it if needed."""

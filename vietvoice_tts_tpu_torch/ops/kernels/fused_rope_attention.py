@@ -36,7 +36,10 @@ KERNEL = "fused_rope_attention"
 HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = 0  # kernel launches by this process; callers may reset it to 0
+# Kernel launches by this process; callers may reset it to 0. A CUDA graph's
+# replay adds the launches its capture recorded (``ops/kernels/__init__.py:
+# add_launches``), so the count is of kernels that ran for a batch.
+launches = 0
 
 
 def supports_shape(heads: int, head_dim: int, n: int) -> bool:

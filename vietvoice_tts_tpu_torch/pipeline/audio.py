@@ -5,8 +5,9 @@ the C++ host library (``native/``, built with ``g++`` at first use) and in
 numpy where the host has no ``g++``; the two agree within 1 LSB. Behavioral
 parity with the reference's ``AudioProcessor``
 (``vietvoicetts/core/audio_processor.py:12-193``): load/mono/resample →
-int16 normalize, clipped-audio repair, WAV save, and the equal-power
-cross-fade with RMS matching, all at once
+int16 normalize, clipped-audio repair, WAV save, the linear cross-fade
+(``concatenate_with_crossfade``) and the equal-power cross-fade with RMS
+matching, all at once
 (``concatenate_with_crossfade_improved``) or chunk by chunk as a stream
 (``stream_with_crossfade``).
 """
@@ -102,6 +103,32 @@ class AudioProcessor:
         """Write 16-bit PCM WAV, creating parent dirs
         (reference audio_processor.py:61-67)."""
         write_wav(np.asarray(audio).reshape(-1), file_path, sample_rate)
+
+    @staticmethod
+    def concatenate_with_crossfade(
+        generated_waves: List[np.ndarray],
+        cross_fade_duration: float,
+        sample_rate: int,
+    ) -> np.ndarray:
+        """Linear-fade concatenation (reference audio_processor.py:70-120)."""
+        if not generated_waves:
+            return np.array([])
+        waves = [np.asarray(w).reshape(-1) for w in generated_waves]
+        if len(waves) == 1:
+            return waves[0]
+        if cross_fade_duration <= 0:
+            return np.concatenate(waves)
+        final = waves[0]
+        for nxt in waves[1:]:
+            n = min(int(cross_fade_duration * sample_rate), len(final), len(nxt))
+            if n <= 0:
+                final = np.concatenate([final, nxt])
+                continue
+            fade_out = np.linspace(1.0, 0.0, n)
+            fade_in = np.linspace(0.0, 1.0, n)
+            overlap = final[-n:] * fade_out + nxt[:n] * fade_in
+            final = np.concatenate([final[:-n], overlap, nxt[n:]])
+        return final
 
     @staticmethod
     def concatenate_with_crossfade_improved(

@@ -87,8 +87,9 @@ class TTSEngine:
 
     def warmup(self, batches=None, buckets=None) -> None:
         """Run the serving shape grid once, at deploy time, so that no
-        request pays a first use (see ``EngineCore.warmup`` for what that
-        is in eager PyTorch: kernel builds, library handles, buffers).
+        request pays a first use: on the card, each shape's CUDA graph is
+        captured (see ``EngineCore.warmup``: an eager run, the capture and
+        a replay, about three eager batches of host time a shape).
 
         The default batch grid is exactly the set of padded row counts the
         micro-batcher dispatches (``config.batch_grid``); the default
@@ -377,14 +378,15 @@ class TTSEngine:
         thread queues the batches and its fetcher resolves each at its
         event, so chunks of one bucket that ride one batch come together.
         Direct mode runs single-row dispatches, one at a time: chunk k is
-        handed to the caller before chunk k+1 is dispatched. The JAX engine keeps two in
-        flight, where a dispatch is one asynchronous call. Here it is some
-        17,000 kernel launches and CUDA's launch queue holds about a
-        thousand, so the host could not queue chunk k+1 behind a running
-        chunk k anyway: it would sit in the queue until chunk k+1 was nearly
-        done, and chunk k would reach the caller a whole chunk late (measured
-        on an H100, ``PERF.md``). The device waits only the milliseconds
-        between a fetch and the next dispatch's first kernels."""
+        handed to the caller before chunk k+1 is dispatched. The JAX engine
+        keeps two in flight. Here a dispatch is one graph replay, but the
+        launch of a 2048-frame chunk's graph (which holds cuBLAS's memset
+        nodes) blocks the host for ~70 ms, so with chunk k+1 dispatched
+        first chunk k reached the caller later: 350.6 ms against 279.6 ms
+        for the first piece with a 2048-frame head chunk, 158.5 against
+        87.4 ms with the 4 s head, on an H100 (``chip_smoke.py`` phase 14
+        (d), ``PERF.md``). The device waits only the milliseconds between a
+        fetch and the next replay."""
         if self.batcher is not None:
             for p, j in self._submit_chunks(plans, ref_audio_f32):
                 yield self._slice_output(p, j.future.result())

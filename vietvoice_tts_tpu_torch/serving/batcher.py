@@ -13,11 +13,11 @@ another order at another batch size.
 
 The scheduling is the JAX batcher's. What differs on a CUDA card:
 
-- A dispatch is not one asynchronous call but the host queueing every kernel
-  of a 31-step solve, which takes the dispatcher thread as long as the device
-  needs for most of them (CUDA's launch queue is bounded). The fetcher waits
-  on a CUDA event, which releases the GIL, so a finished batch reaches its
-  callers while the dispatcher is already queueing the next one.
+- A dispatch is one replay of the CUDA graph captured for the batch's shape
+  (``runtime/graphs.py``), as JAX's is one compiled call; the first batch of
+  a shape that ``warmup`` did not capture pays the capture. The fetcher
+  waits on a CUDA event, which releases the GIL, so a finished batch reaches
+  its callers while the dispatcher is already queueing the next one.
 - Both threads leave the current stream alone: all work goes to the default
   stream, in dispatch order, and the kernel wrappers follow it.
 - There is no trimmed fetch: a row's PCM is at most 1 MB, tens of
@@ -346,8 +346,8 @@ class MicroBatcher:
     def _run_batch(self, jobs: list[ChunkJob]) -> None:
         bucket = jobs[0].bucket
         # Pad the row count up to the batch grid (config.batch_grid) so the
-        # device sees a few repeating shapes per bucket: the pinned buffers
-        # and library workspaces that warmup took are reused, and the
+        # device sees a few repeating shapes per bucket: the graphs that
+        # warmup captured are replayed, and the
         # dispatched shape never exceeds the configured cap.
         b = len(jobs)
         padded = pad_batch_size(b, self.max_batch)
