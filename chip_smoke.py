@@ -70,7 +70,9 @@ check raises):
    ``build/chip_smoke/train/`` (``train()`` exports into the pack it trains):
    (a) ``train()`` in process, batch 8 for 8 steps with checkpoints every 4,
    then resumed to step 12 — finite losses, the right final steps, **no**
-   kernel launch (neither kernel has a backward), a moved ``blocks.*.ada``;
+   kernel launch (neither kernel has a backward), every step a CUDA graph's
+   capture or replay (one capture per (batch, frames) key, a replay for
+   every other step), a moved ``blocks.*.ada``;
    after each run the latest checkpoint, loaded into a DiT and optimizer
    that ``init_train_state`` builds on the card, holds float32 weights and
    Adam moments on the card at the run's step, and the ``dit`` tree the run
@@ -82,7 +84,13 @@ check raises):
    on the trained pack serves a short request (682 fused-kernel launches);
    (d) ``python -m vietvoice_tts_tpu_torch.training`` as a subprocess with no
    ``--device``, on a seeded pack of 2 layers at the full widths: exit code
-   0, ``cuda`` and a finite final loss.
+   0, ``cuda`` and a finite final loss; (e) the train step as graph replays
+   against eager steps from one state, full width, batch 8 × 256, a new
+   learning rate every step, in bf16 and in f32 (TF32 off): 8 steps
+   bit-identical in every loss, parameter and Adam moment, with each mode's
+   step ms, tokens/s, 6·P·tokens against the peak, traced device time and
+   idle share, peak memory, and the graph's capture wall, nodes (and
+   non-kernel nodes) and pool.
 10. Conversion day at the F5 widths (``models/f5_fixture.py:FixtureSpec``:
     dim 1024, 16 heads × 64 — kernel 1's head shape — ff_mult 2, text 512 ×
     4 conv layers, 100 mels, vocab 211, vocoder 512/1536/8), from a synthetic
@@ -1244,8 +1252,10 @@ def phase_rest(cfg, smi: str) -> int:
 
 
 def _train_run(label, model_cfg, train_cfg, run, smi) -> dict:
-    """One ``train()`` in process with no kernel launch allowed; returns its
-    summary with the run's peak memory."""
+    """One ``train()`` in process with no kernel launch allowed, every step a
+    graph's capture or replay: one capture per (batch, frames) key the run
+    met, a replay for every other step. Returns its summary with the run's
+    peak memory."""
     import torch
 
     from vietvoice_tts_tpu_torch.training.loop import train
@@ -1261,9 +1271,16 @@ def _train_run(label, model_cfg, train_cfg, run, smi) -> dict:
     losses = summary["losses"]
     if summary["final_step"] != run.steps or not losses or not np.all(np.isfinite(losses)):
         raise AssertionError(f"{label}: {summary}")
+    keys = sorted(set(summary["step_shapes"]))
+    graphs = summary["graph_captures"], summary["graph_replays"]
+    if graphs != (len(keys), len(losses) - len(keys)):
+        raise AssertionError(f"{label}: {graphs} graph captures and replays for "
+                             f"{len(losses)} steps of the keys {keys}")
     log(f"[9] {label}: steps to {summary['final_step']} in {wall:.1f} s wall (pack load, "
-        f"data, checkpoints included); losses {[round(x, 3) for x in losses]}; peak "
-        f"memory {peak / 2**30:.2f} GiB; kernel launches 0 [{smi}]")
+        f"data, checkpoints included); losses {[round(x, 3) for x in losses]}; "
+        f"{graphs[0]} graphs captured for the (batch, frames) keys {keys}, {graphs[1]} "
+        f"replays; step ms {' '.join(f'{t * 1e3:.1f}' for t in summary['step_seconds'])}; "
+        f"peak memory {peak / 2**30:.2f} GiB; kernel launches 0 [{smi}]")
     summary["peak_bytes"] = peak
     return summary
 
@@ -1364,6 +1381,108 @@ def _f32_card_against_cpu(vocab_size: int, smi: str) -> None:
         raise AssertionError("(b) card and CPU disagree beyond tolerance")
 
 
+# 9 (e): steps of each run, the first P9_TIMED on the host's clock (the
+# graph's first is its capture), the rest under torch.profiler.
+P9_GRAPH_STEPS = 8
+P9_TIMED = 5
+
+
+def _train_graph_against_eager(tree: dict, vocab_size: int, smi: str) -> None:
+    """(e) The train step as graph replays against eager steps from the same
+    state, at full width, batch 8 × 256 (187 valid frames, as the seeded
+    pack's 2 s clips), ``warmup_steps=2`` (a new learning rate at every
+    step), in bf16 and in f32 (TF32 off): every loss, parameter and Adam
+    moment bit-identical after P9_GRAPH_STEPS steps; one capture, no kernel
+    launch; step ms (median of steps 2..P9_TIMED), tokens/s, 6·P·tokens
+    against the dtype's peak, the device's kernel time and idle share (the
+    last steps traced), the capture's wall, the graph's nodes and its
+    non-kernel nodes (cuBLAS's memsets), the pool and each run's peak."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vietvoice_tts_tpu_torch.models.dit import DiTConfig
+    from vietvoice_tts_tpu_torch.training import train as ttrain
+
+    dcfg = DiTConfig(vocab_size=vocab_size)
+    b, n, valid = 8, 256, 187
+    rng = np.random.default_rng(12)
+    ids = np.full((b, n), -1, np.int32)
+    ids[:, :50] = rng.integers(0, vocab_size, (b, 50))
+    batch = ttrain.as_tensors(rng.normal(-4.0, 2.0, (b, n, dcfg.n_mels)).astype(np.float32),
+                              ids, np.full((b,), valid, np.int32), "cuda")
+    for dtype in ("bfloat16", "float32"):
+        tcfg = ttrain.TrainConfig(compute_dtype=dtype, warmup_steps=2)
+        draws = [ttrain.draw(torch.Generator().manual_seed(i), b, n, dcfg.n_mels, tcfg).to("cuda")
+                 for i in range(P9_GRAPH_STEPS)]
+        runs = {}
+        for mode in ("graph", "eager"):
+            _reset_launches()
+            dit, opt = ttrain.init_train_state(tree, dcfg, tcfg, "cuda")
+            step = ttrain.make_train_step(dcfg, tcfg)
+            if mode == "eager":
+                step.graphs = None
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses, ms = [], []
+            for d in draws[:P9_TIMED]:
+                t0 = time.perf_counter()
+                losses.append(step(dit, opt, d, *batch).item())
+                ms.append((time.perf_counter() - t0) * 1e3)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for d in draws[P9_TIMED:]:
+                    losses.append(step(dit, opt, d, *batch).item())
+            kernels = [e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and e.self_device_time_total > 0
+                       and not getattr(e, "is_user_annotation", False) and "#" not in e.key]
+            traced = P9_GRAPH_STEPS - P9_TIMED
+            runs[mode] = dict(
+                dit=dit, opt=opt, step=step, losses=losses, ms=statistics.median(ms[1:]),
+                first_ms=ms[0], peak=torch.cuda.max_memory_allocated(),
+                device_ms=sum(e.self_device_time_total for e in kernels) / 1e3 / traced,
+                device_launches=sum(e.count for e in kernels) / traced)
+            if _launches() != {"fused_rope": 0, "flash": 0}:
+                raise AssertionError(f"(e) {dtype} {mode}: kernels launched {_launches()}")
+        g, e = runs["graph"], runs["eager"]
+        graphs = g["step"].graphs
+        if (graphs.captures, graphs.replays) != (1, P9_GRAPH_STEPS - 1):
+            raise AssertionError(f"(e) {dtype}: {graphs.captures} captures, {graphs.replays} "
+                                 f"replays for {P9_GRAPH_STEPS} steps of one shape")
+        if g["losses"] != e["losses"] or not np.all(np.isfinite(g["losses"])):
+            raise AssertionError(f"(e) {dtype}: losses {g['losses']} against eager {e['losses']}")
+        params = list(zip(g["dit"].named_parameters(), e["dit"].parameters(), strict=True))
+        for (name, p), q in params:
+            if not torch.equal(p, q):
+                raise AssertionError(f"(e) {dtype}: parameter {name} differs from eager")
+            for k in ("exp_avg", "exp_avg_sq"):
+                if not torch.equal(g["opt"].state[p][k], e["opt"].state[q][k]):
+                    raise AssertionError(f"(e) {dtype}: {k} of {name} differs from eager")
+        entry = next(iter(graphs.entries.values()))
+        pool = graphs.pool_bytes()
+        n_params = sum(p.numel() for (_, p), _ in params)
+        flops = 6.0 * n_params * b * n
+        lines = []
+        for mode, r in runs.items():
+            idle = 100 * (1 - r["device_ms"] / r["ms"]) if r["device_ms"] else float("nan")
+            lines.append(
+                f"{mode} {r['ms']:.1f} ms a step (first {r['first_ms']:.1f}), "
+                f"{b * n / r['ms'] * 1e3:.0f} tokens/s, {flops / r['ms'] / 1e9:.1f} TFLOP/s = "
+                f"{100 * flops / r['ms'] / 1e9 / PEAK_FLOPS[dtype] * 1e12:.1f}% of the "
+                f"{PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s {dtype} peak, device kernels "
+                f"{r['device_ms']:.1f} ms in {r['device_launches']:.0f} a step (traced), idle "
+                f"{idle:.1f}%, peak memory {r['peak'] / 2**30:.2f} GiB")
+        log(f"[9] (e) {dtype} train step at full width, batch {b} × {n}, graph replays against "
+            f"eager from one state: {P9_GRAPH_STEPS} steps bit-identical in every loss, all "
+            f"{len(params)} parameters and both Adam moments (losses "
+            f"{[round(x, 4) for x in g['losses']]}); 1 capture, {graphs.replays} replays, 0 "
+            f"kernel launches; {'; '.join(lines)}; eager/graph {e['ms'] / g['ms']:.2f}; capture "
+            f"{entry.capture_s:.2f} s wall (the eager run included), {entry.graph.nodes} nodes, "
+            f"{entry.graph.nodes - entry.graph.kernel_nodes} of them not kernels; pool "
+            f"{pool[0] / 2**30:.2f} GiB reserved, {pool[1] / 2**30:.2f} GiB allocated [{smi}]")
+        del runs, g, e, params, graphs, entry
+        torch.cuda.empty_cache()
+
+
 def _leaves(tree, prefix=()):
     """(path, array) for every leaf of a pack tree."""
     items = tree.items() if isinstance(tree, dict) else enumerate(tree)
@@ -1439,7 +1558,8 @@ def phase_training(cfg, smi: str) -> int:
     torch.cuda.empty_cache()
 
     # (b) f32, card against CPU.
-    _f32_card_against_cpu(json.loads((pack / "model_meta.json").read_text())["vocab_size"], smi)
+    vocab = json.loads((pack / "model_meta.json").read_text())["vocab_size"]
+    _f32_card_against_cpu(vocab, smi)
 
     # (c) The trained pack served on the card.
     t0 = time.perf_counter()
@@ -1483,6 +1603,9 @@ def phase_training(cfg, smi: str) -> int:
         f"{P9_CLI_DEPTH}-layer pack: exit 0 in {wall:.1f} s wall, device cuda, f32, final loss "
         f"{float(final.group(2)):.4f} [{smi}]")
     shutil.rmtree(TRAIN_WORK, ignore_errors=True)  # ~20 GB of checkpoints
+
+    # (e) Graph replays against eager steps.
+    _train_graph_against_eager(_perturbed_gates({"dit": before}, seed=12)["dit"], vocab, smi)
     return got["fused_rope"]
 
 

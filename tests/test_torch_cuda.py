@@ -681,3 +681,56 @@ def test_cuda_row_parallel_product_is_float32_from_bf16_inputs(cuda_device):
     tracked.sum().backward()
     assert (tracked.double() - exact).abs().max().item() <= 1e-2
     assert xg.grad is not None and xg.grad.shape == x.shape
+
+
+# -- the train step as a captured graph -----------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_train_step_replays_equal_eager_steps(cuda_device, dtype):
+    """Four train steps as graph replays against four eager steps from the
+    same state, at the default widths and 2 layers, AdaLN gates opened, in
+    two keys (batch × frames 2 × 256, 2 × 256, 1 × 128, 2 × 256), with a
+    learning rate that changes every step (``warmup_steps=2``): the same
+    kernels in the same order, so every loss, parameter and Adam moment is
+    equal bit for bit. One capture per key; its eager run is that key's
+    first step."""
+    from vietvoice_tts_tpu_torch.training import train as ttrain
+
+    dcfg = tdit.DiTConfig(depth=2, vocab_size=32)
+    tree = tdit.init_dit_params(np.random.default_rng(0), dcfg)
+    rng = np.random.default_rng(1)
+    for gates in (tree["blocks"]["ada"], tree["final_ada"]):
+        for k in gates:
+            gates[k] = rng.normal(0.0, 0.01, gates[k].shape).astype(np.float32)
+    tcfg = ttrain.TrainConfig(compute_dtype=dtype, warmup_steps=2)
+    shapes = [(2, 256), (2, 256), (1, 128), (2, 256)]
+    batches = {}
+    for b, n in set(shapes):
+        mel = rng.standard_normal((b, n, dcfg.n_mels)).astype(np.float32) - 4.0
+        ids = rng.integers(-1, dcfg.vocab_size, (b, n)).astype(np.int32)
+        batches[b, n] = ttrain.as_tensors(mel, ids, np.array([n, n - 60][:b], np.int32),
+                                          cuda_device)
+
+    def run(graphs: bool):
+        dit, opt = ttrain.init_train_state(tree, dcfg, tcfg, cuda_device)
+        step = ttrain.make_train_step(dcfg, tcfg)
+        if not graphs:
+            step.graphs = None
+        losses = []
+        for i, (b, n) in enumerate(shapes):
+            draws = ttrain.draw(torch.Generator().manual_seed(i), b, n, dcfg.n_mels, tcfg)
+            losses.append(step(dit, opt, draws.to(cuda_device), *batches[b, n]).item())
+        return dit, opt, step, losses
+
+    dit_g, opt_g, step_g, losses_g = run(True)
+    dit_e, opt_e, step_e, losses_e = run(False)
+    assert step_e.graphs is None
+    assert (step_g.graphs.captures, step_g.graphs.replays) == (2, 2)
+    assert losses_g == losses_e and all(np.isfinite(losses_g))
+    assert ttrain.update_count(opt_g) == ttrain.update_count(opt_e) == len(shapes)
+    assert all(p.grad is None for p in dit_g.parameters())
+    for (name, p), q in zip(dit_g.named_parameters(), dit_e.parameters(), strict=True):
+        assert torch.equal(p, q), name
+        for k in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(opt_g.state[p][k], opt_e.state[q][k]), (name, k)

@@ -135,6 +135,37 @@ def test_first_chunk_cap_shortens_first_piece(engine):
     assert [len(p) for p in from_config] == [len(p) for p in capped]
 
 
+@pytest.mark.parametrize("cap,max_chunk", [
+    (-1.0, 20.0), (0.0, 20.0), (20.5, 20.0), (15.0, 10.0), (float("nan"), 20.0)])
+def test_an_invalid_head_cap_raises(engine, cap, max_chunk):
+    """The JAX package takes any cap: a negative one always cuts an
+    8-character head, one above the chunk limit never engages. The port
+    takes None or (0, max_chunk_duration], in the config and per call."""
+    with pytest.raises(ValueError, match="streaming_first_chunk_duration"):
+        port_config(streaming_first_chunk_duration=cap, max_chunk_duration=max_chunk)
+    if max_chunk == engine.config.max_chunk_duration:
+        with pytest.raises(ValueError, match="first_chunk_duration"):
+            engine.synthesize_streaming(LONG, first_chunk_duration=cap)
+    assert port_config(streaming_first_chunk_duration=max_chunk,
+                       max_chunk_duration=max_chunk).streaming_first_chunk_duration == max_chunk
+
+
+def test_a_valid_head_cap_splits_the_head_as_jax_plans_it(engine, tiny_engine, monkeypatch):
+    ref_audio, ref_text = engine.model_session_manager.select_sample()
+    ref = engine._load_ref(ref_audio).astype(np.float32) / 32768.0
+    planned = []
+    plan = engine._plan_chunks
+    monkeypatch.setattr(engine, "_plan_chunks", lambda *a, **k: planned.append(plan(*a, **k))
+                        or planned[-1])
+    # The plan is what is checked: no chunk is synthesized.
+    monkeypatch.setattr(engine, "_iter_chunk_waves",
+                        lambda plans, ref: iter([np.zeros(len(plans), np.int16)]))
+    assert len(list(engine.synthesize_streaming(LONG, first_chunk_duration=2.0))) == 1
+    theirs = tiny_engine._plan_chunks(ref, ref_text, LONG, first_chunk_cap=2.0)
+    assert [dataclasses.asdict(p) for p in planned[0]] == [dataclasses.asdict(p) for p in theirs]
+    assert len(theirs) > len(tiny_engine._plan_chunks(ref, ref_text, LONG))
+
+
 # -- Streaming against blocking --------------------------------------------------------
 
 

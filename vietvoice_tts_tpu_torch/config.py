@@ -14,6 +14,8 @@ same in both packages. Differences:
   counterpart of a program compiled per shape is a CUDA graph captured per
   shape, in memory, at ``warmup`` or at a shape's first batch
   (``runtime/graphs.py``); no field turns it off.
+- ``streaming_first_chunk_duration`` is checked: None, or in (0,
+  ``max_chunk_duration``] (the JAX config takes any value).
 - The mesh axes (``mesh_data_axis``, ``mesh_model_axis``,
   ``sequence_parallel``) have the JAX defaults; a mesh is a group of
   ``torch.distributed`` ranks (``parallel/mesh.py``).
@@ -39,6 +41,19 @@ MODEL_EMOTION = ["neutral", "serious", "monotone", "sad", "surprised", "happy", 
 DETERMINISTIC_SEED = 9527
 
 COMPUTE_DTYPES = ("float32", "bfloat16")
+
+
+def check_first_chunk_duration(cap: Optional[float], max_chunk_duration: float,
+                               name: str = "first_chunk_duration") -> None:
+    """Raise ``ValueError`` unless the streaming head cap is None (no head
+    split) or in (0, ``max_chunk_duration``] seconds. The planner's split
+    (``TTSEngine._plan_chunks``, JAX's line for line) would otherwise cut
+    an 8-character head for any cap of 0 or below, and never engage above
+    the chunk limit."""
+    if cap is not None and not 0 < cap <= max_chunk_duration:
+        raise ValueError(
+            f"{name} must be None or in (0, max_chunk_duration = {max_chunk_duration}] "
+            f"seconds, got {cap}")
 
 
 @dataclass
@@ -181,6 +196,9 @@ class ModelConfig:
         for name in ("compute_dtype", "norm_dtype"):
             if getattr(self, name) not in COMPUTE_DTYPES:
                 raise ValueError(f"{name} must be one of {COMPUTE_DTYPES}")
+        check_first_chunk_duration(
+            self.streaming_first_chunk_duration, self.max_chunk_duration,
+            "streaming_first_chunk_duration")
         device = torch.device(self.device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(

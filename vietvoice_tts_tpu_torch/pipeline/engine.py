@@ -24,7 +24,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from ..config import ModelConfig
+from ..config import ModelConfig, check_first_chunk_duration
 from ..runtime.engine_core import EngineCore
 from ..runtime.session import ModelSessionManager
 from ..utils.logging import get_logger
@@ -431,17 +431,23 @@ class TTSEngine:
         ``first_chunk_duration`` (or ``config.streaming_first_chunk_duration``)
         also caps the first chunk's target audio length so playback starts
         sooner on long texts, at the cost of one more cross-fade boundary;
-        the chunking then differs from the blocking output's."""
-        ref_audio, ref_text = self.model_session_manager.select_sample(
-            gender, group, area, emotion, sample_iteration, reference_audio, reference_text
-        )
-        ref_int16 = self._load_ref(ref_audio)
-        ref_f32 = ref_int16.astype(np.float32) / 32768.0
+        the chunking then differs from the blocking output's. A cap must be
+        in (0, ``max_chunk_duration``]: another raises ``ValueError`` here,
+        before anything is planned or yielded."""
         cap = (
             first_chunk_duration
             if first_chunk_duration is not None
             else self.config.streaming_first_chunk_duration
         )
+        check_first_chunk_duration(cap, self.config.max_chunk_duration)
+        return self._stream(
+            text, (gender, group, area, emotion, sample_iteration, reference_audio,
+                   reference_text), speed, cap)
+
+    def _stream(self, text: str, voice: tuple, speed: Optional[float], cap: Optional[float]):
+        ref_audio, ref_text = self.model_session_manager.select_sample(*voice)
+        ref_int16 = self._load_ref(ref_audio)
+        ref_f32 = ref_int16.astype(np.float32) / 32768.0
         plans = self._plan_chunks(
             ref_f32, ref_text, text, speed=speed, first_chunk_cap=cap
         )

@@ -1,5 +1,6 @@
-"""Captured CUDA graphs of the chunk programs: the port of the JAX core's
-compiled-program cache.
+"""Captured CUDA graphs of the chunk programs and of the train step: the
+port of the JAX core's compiled-program cache and of the trainer's
+``jax.jit`` (``training/train.py:TrainStep``).
 
 The JAX ``EngineCore`` compiles each chunk program once per shape
 (``vietvoice_tts_tpu/runtime/engine_core.py:251-314``: ``_jit_cache``, keyed
@@ -105,12 +106,13 @@ class CudaGraph:
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         self.nodes = self.kernel_nodes = None
 
-    def warm(self, fn: Callable[[], Any]) -> None:
+    def warm(self, fn: Callable[[], Any]) -> Any:
         current = torch.cuda.current_stream(self.stream.device)
         self.stream.wait_stream(current)
         with torch.cuda.stream(self.stream):
-            fn()
+            out = fn()
         current.wait_stream(self.stream)
+        return out
 
     def capture(self, fn: Callable[[], torch.Tensor]) -> torch.Tensor:
         with torch.cuda.graph(self.graph, pool=self.pool, stream=self.stream,
@@ -147,17 +149,38 @@ class GraphCache:
         self.captures = 0
         self.replays = 0
 
+    def pool_bytes(self) -> tuple[int, int]:
+        """(reserved, allocated) bytes of the cache's memory pool on the
+        card, from the allocator's snapshot; (0, 0) before the first
+        capture."""
+        if self._shared is None:
+            return 0, 0
+        pool = tuple(self._shared[0])
+        segments = [s for s in torch.cuda.memory_snapshot()
+                    if tuple(s.get("segment_pool_id", ())) == pool]
+        return (sum(s["total_size"] for s in segments),
+                sum(s["allocated_size"] for s in segments))
+
     def run(self, key, program: Callable[..., torch.Tensor], inputs,
-            prepared: Callable[[], None] | None = None) -> torch.Tensor:
+            prepared: Callable[[], None] | None = None,
+            warm_is_call: bool = False) -> torch.Tensor:
         """Replay ``key``'s graph on ``inputs`` (host or device tensors of
         fixed shapes), capturing ``program(*static_inputs)`` first if the key
-        is new. ``prepared`` runs between the eager run and the capture and
-        raises if something the capture needs is missing. Returns the static
-        output: copy it before the next replay of ``key``."""
+        is new. ``prepared`` runs between the eager run and the capture: it
+        raises if something the capture needs is missing, or makes it.
+        Returns the static output: copy it before the next replay of ``key``.
+
+        With ``warm_is_call`` a new key's eager run is this call: its output
+        is returned and the new graph is not replayed. That is for a program
+        that changes state, such as a train step, which must run once a
+        call."""
         global replays
         entry = self.entries.get(key)
         if entry is None:
-            entry = self._capture(key, program, inputs, prepared)
+            entry, warm = self._capture(key, program, inputs, prepared)
+            if warm_is_call:
+                add_launches(entry.launches)
+                return warm
         else:
             self._load(entry, inputs)
         entry.graph.replay()
@@ -175,7 +198,9 @@ class GraphCache:
                     f"{tuple(static.shape)} {static.dtype}")
             static.copy_(x, non_blocking=True)
 
-    def _capture(self, key, program, inputs, prepared) -> GraphEntry:
+    def _capture(self, key, program, inputs, prepared) -> tuple[GraphEntry, Any]:
+        """Capture ``key``'s graph; returns its entry and the eager run's
+        output."""
         global captures
         t0 = time.perf_counter()
         statics = tuple(
@@ -187,7 +212,7 @@ class GraphCache:
         graph = self._graph_cls(self._shared)
         before = launch_counts()
         try:
-            graph.warm(lambda: program(*statics))
+            warm = graph.warm(lambda: program(*statics))
             if prepared is not None:
                 prepared()
             start = launch_counts()
@@ -205,4 +230,4 @@ class GraphCache:
         log.info("Captured %s in %.2fs: %s nodes (%s kernels), attention launches %s",
                  key[:3], entry.capture_s, getattr(graph, "nodes", None),
                  getattr(graph, "kernel_nodes", None), entry.launches)
-        return entry
+        return entry, warm

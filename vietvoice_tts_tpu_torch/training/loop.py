@@ -6,7 +6,11 @@ manifest. It resumes from the latest checkpoint when one exists (the step
 count carries on; the random draws are re-seeded from
 ``ModelConfig.random_seed`` and the data iterator restarts, as the JAX loop's
 key and iterator do), and on completion exports the trained DiT into the
-pack it started from, replacing only ``dit`` in ``params.msgpack``.
+pack it started from, replacing only ``dit`` in ``params.msgpack``. On the
+card off a mesh every step is a replay of the CUDA graph captured for its
+shape (``train.TrainStep``), as the JAX loop's step is compiled once per
+shape; the checkpoint is restored before the first step, since the graphs
+read the optimizer's state by address.
 
 On a mesh (``mesh=``, or ``ModelConfig.mesh_data_axis`` ×
 ``mesh_model_axis`` > 1 in a process group that has that many ranks) every
@@ -31,6 +35,7 @@ from ..models.dit import DiTConfig
 from ..models.params import to_jax_tree
 from ..parallel.mesh import make_mesh
 from ..parallel.sharding import gather_tree, param_pspecs, shard_tree
+from ..runtime import graphs
 from ..runtime.serialization import load_params, save_params
 from ..runtime.session import ModelSessionManager
 from ..utils.logging import get_logger
@@ -59,10 +64,14 @@ def train(
     mesh=None,
 ) -> dict:
     """Train the flow-matching DiT on ``model_config.device``; returns
-    ``{"final_step", "final_loss", "losses", "step_seconds"}`` — the last
-    two per step of this run, each step's wall time running from the batch's
-    copy to the device (data loading excluded) to the host read of its loss
-    (which waits for the device). ``mesh`` is a ``parallel.make_mesh``
+    ``{"final_step", "final_loss", "losses", "step_seconds", "step_shapes",
+    "graph_captures", "graph_replays"}``: per step of this run its loss, its
+    wall time from the batch's copy to the device (data loading excluded) to
+    the host read of its loss (which waits for the device), and its (batch,
+    frames); then the train-step graphs this run captured and replayed (on
+    the card off a mesh one capture per key, whose eager run is that step,
+    and a replay for every other step; none elsewhere,
+    ``train.TrainStep``). ``mesh`` is a ``parallel.make_mesh``
     mesh; without one, the config's mesh axes make one when their product
     is above 1 (a ``ValueError`` before anything is loaded when the process
     group has another number of ranks)."""
@@ -123,6 +132,8 @@ def train(
     generator = torch.Generator().manual_seed(model_config.random_seed)
     losses: list[float] = []
     seconds: list[float] = []
+    shapes: list[tuple[int, int]] = []
+    captured, replayed = graphs.captures, graphs.replays
     step = start_step
     data_iter = iter(dataset)
     while step < run.steps:
@@ -138,6 +149,7 @@ def train(
         loss = step_fn(dit, opt, draws, mel, text_ids, lengths)
         losses.append(loss.item())
         seconds.append(time.perf_counter() - t0)
+        shapes.append((b, n))
         step += 1
         if step % run.log_every == 0:
             log.info("step %d: loss %.4f", step, np.mean(losses[-run.log_every:]))
@@ -159,4 +171,7 @@ def train(
         "final_loss": losses[-1] if losses else None,
         "losses": losses,
         "step_seconds": seconds,
+        "step_shapes": shapes,
+        "graph_captures": graphs.captures - captured,
+        "graph_replays": graphs.replays - replayed,
     }

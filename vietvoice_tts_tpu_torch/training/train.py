@@ -33,6 +33,11 @@ are summed over the data group; tensor parallelism shards the DiT
 global-norm clip sums the squares of each sharded leaf over the model group
 once and of each replicated leaf once, so every rank clips by the same norm.
 
+On the card without a mesh, a step is one replay of a CUDA graph captured
+per shape (:class:`TrainStep`), the counterpart of ``jax.jit`` of the JAX
+step: the update's learning rate and bias corrections are the graph's
+inputs, computed on the host from the update count.
+
 Mixed precision: ``compute_dtype="bfloat16"`` builds the DiT with bfloat16
 compute while its parameters, the master weights, and the Adam moments stay
 float32; ``linear`` casts each weight per use, so gradients come out
@@ -44,6 +49,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -53,7 +59,8 @@ from ..models.dit import DiT, DiTConfig
 from ..models.params import dit_state
 from ..parallel import comm
 from ..parallel.sharding import shard_batch
-from ..runtime.engine_core import _true_float32
+from ..runtime.engine_core import _true_float32, captures_graphs
+from ..runtime.graphs import GraphCache
 
 ADAM_BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
@@ -211,25 +218,47 @@ class AdamW(torch.optim.Optimizer):
     1e-3: its updates differ from optax's by ~6e-6 of their size, and that
     difference, not rounding, would set the parity bound. Here they agree
     to rounding. State per parameter: ``step``, ``exp_avg`` (μ),
-    ``exp_avg_sq`` (ν), float32 like the master weights."""
+    ``exp_avg_sq`` (ν), float32 like the master weights.
+
+    An update is two halves, so that the device half can be captured in a
+    CUDA graph (:class:`TrainStep`): :meth:`begin_update`, on the host,
+    makes the state at the first update, advances every parameter's count
+    (a CPU tensor, as before graphs: checkpoints keep their format) and
+    returns the update's scalars; :meth:`apply` is the arithmetic on the
+    device, with those scalars as a tensor there, and reads nothing on the
+    host. :meth:`step` is the two in a row at the group's ``lr``."""
 
     def __init__(self, params, weight_decay: float, lr: float = 0.0):
         super().__init__(params, dict(lr=lr, weight_decay=weight_decay))
 
     @torch.no_grad()
-    def step(self) -> None:
-        b1, b2 = ADAM_BETAS
+    def begin_update(self, lr: float) -> torch.Tensor:
+        """Make the state if there is none, count one more update and return
+        [lr, 1 − b1ᵗ, 1 − b2ᵗ] for it (update t, from 1), float32 on the CPU:
+        the corrections in float32, as optax takes them."""
         for group in self.param_groups:
-            params = [p for p in group["params"] if p.grad is not None]
-            if not params:
-                continue
-            states = [self.state[p] for p in params]
-            for p, st in zip(params, states):
+            group["lr"] = lr
+            for p in group["params"]:
+                st = self.state[p]
                 if not st:
                     st["step"] = torch.zeros((), dtype=torch.float32)
                     st["exp_avg"] = torch.zeros_like(p)
                     st["exp_avg_sq"] = torch.zeros_like(p)
                 st["step"] += 1
+        count = st["step"]  # the same for every parameter
+        f32 = torch.float32
+        return torch.stack([torch.tensor(lr, dtype=f32)] + [
+            1 - torch.tensor(b, dtype=f32) ** count for b in ADAM_BETAS])
+
+    @torch.no_grad()
+    def apply(self, scalars: torch.Tensor) -> None:
+        """The update on every parameter's ``.grad``, from :meth:`begin_update`'s
+        scalars on the parameters' device."""
+        b1, b2 = ADAM_BETAS
+        lr, bc1, bc2 = scalars
+        for group in self.param_groups:
+            params = group["params"]
+            states = [self.state[p] for p in params]
             grads = [p.grad for p in params]
             mu = [st["exp_avg"] for st in states]
             nu = [st["exp_avg_sq"] for st in states]
@@ -240,9 +269,6 @@ class AdamW(torch.optim.Optimizer):
             torch._foreach_mul_(nu, b2)
             torch._foreach_add_(nu, sq)
             del sq
-            # 1 − bᵗ in float32, as optax (0-dim CPU tensors: no device sync).
-            count = states[0]["step"]
-            bc1, bc2 = (float(1 - torch.tensor(b, dtype=torch.float32) ** count) for b in (b1, b2))
             denom = torch._foreach_div(nu, bc2)
             torch._foreach_sqrt_(denom)
             torch._foreach_add_(denom, ADAM_EPS)
@@ -250,8 +276,13 @@ class AdamW(torch.optim.Optimizer):
             torch._foreach_div_(update, denom)
             del denom
             torch._foreach_add_(update, torch._foreach_mul(params, group["weight_decay"]))
-            torch._foreach_mul_(update, -group["lr"])
+            torch._foreach_mul_(update, -lr)
             torch._foreach_add_(params, update)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        params = self.param_groups[0]["params"]
+        self.apply(self.begin_update(self.param_groups[0]["lr"]).to(params[0].device))
 
 
 def make_optimizer(params, cfg: TrainConfig) -> AdamW:
@@ -276,9 +307,8 @@ def apply_update(
     ``sharded`` / ``model_group``: see :func:`clip_by_global_norm`."""
     params = [p for group in opt.param_groups for p in group["params"]]
     clip_by_global_norm([p.grad for p in params], cfg.max_grad_norm, sharded, model_group)
-    for group in opt.param_groups:
-        group["lr"] = learning_rate(update_count(opt), cfg)
-    opt.step()
+    scalars = opt.begin_update(learning_rate(update_count(opt), cfg))
+    opt.apply(scalars.to(params[0].device))
 
 
 def train_dit_config(dit_cfg: DiTConfig, train_cfg: TrainConfig) -> DiTConfig:
@@ -310,43 +340,123 @@ def sharded_leaves(dit: DiT) -> list:
     return [p.shape != shapes[n] for n, p in dit.named_parameters()]
 
 
-def make_train_step(dit_cfg: DiTConfig, train_cfg: TrainConfig, mesh=None):
-    """Build ``step(dit, opt, draws, mel, text_ids, lengths) → loss``: one
-    forward and backward of :func:`flow_matching_loss` and one update of
-    ``opt``. ``dit`` must be built as :func:`init_train_state` builds it.
+_UNSET = object()  # TrainStep.graphs before the first call decides it
+
+
+class TrainStep:
+    """``step(dit, opt, draws, mel, text_ids, lengths) → loss``: one forward
+    and backward of :func:`flow_matching_loss` and one update of ``opt``
+    (clip by global norm, then AdamW at the schedule's rate). ``dit`` must
+    be built as :func:`init_train_state` builds it.
+
+    On the card without a mesh each step is one replay of a CUDA graph
+    captured for its key (batch, bucket frames, compute dtype, the two TF32
+    flags): the counterpart of JAX compiling the step once per shape,
+    ``jax.jit(make_train_step(...), donate_argnums=(0, 1))``. The graph
+    holds the forward, the backward, the clip and the AdamW arithmetic. Its
+    inputs, copied in before each replay, are the batch, the draws and the
+    update's scalars [lr, 1 − b1ᵗ, 1 − b2ᵗ], which :meth:`AdamW.begin_update`
+    computes on the host from the host-side count. The CPU and a mesh run
+    the same body eagerly (gloo cannot be captured), so a replay gives an
+    eager step's bits.
+
+    - A key's first step is the eager run that precedes its capture
+      (``GraphCache.run(warm_is_call=True)``): k batches make k updates.
+    - The graphs read the parameters and the optimizer's state by address.
+      Load a checkpoint before the first step, as ``train()`` does, and
+      keep a step to one model and optimizer: either raises otherwise.
+    - The gradients live in the graphs' memory pool, which the graphs of
+      other keys share, so after a graph step ``.grad`` is None.
+    - The returned loss is a copy: the graph's output is overwritten by the
+      key's next replay.
+
+    No setting turns graphs off, and a capture that fails raises. ``graphs``
+    is the :class:`GraphCache`, made at the first call on the card off a
+    mesh. Set it to None for eager steps on the card (``chip_smoke.py``
+    compares the two) or to a cache with another graph class (the CPU
+    tests)."""
+
+    def __init__(self, dit_cfg: DiTConfig, train_cfg: TrainConfig, mesh=None):
+        self.want = train_dit_config(dit_cfg, train_cfg)
+        self.train_cfg = train_cfg
+        self.mesh = mesh
+        self.data_group = mesh.data_group if mesh is not None else None
+        self.numerics = (
+            _true_float32 if train_cfg.compute_dtype == "float32" else contextlib.nullcontext
+        )
+        self.graphs = _UNSET
+        self._sharded = None
+        self._owner = None  # (dit, opt, opt.state) the graphs were captured for
+
+    def __call__(self, dit: DiT, opt: AdamW, draws: Draws, mel, text_ids, lengths) -> torch.Tensor:
+        if dit.cfg != self.want:
+            raise ValueError(f"the DiT was built with {dit.cfg}, this step trains {self.want}")
+        if self.data_group is not None:
+            mel, text_ids, lengths = shard_batch(self.mesh, mel, text_ids, lengths)
+            rows = mel.shape[0]
+            draws = draws.rows(self.mesh.data_index * rows, (self.mesh.data_index + 1) * rows)
+        if self._sharded is None:
+            self._sharded = sharded_leaves(dit)
+        if self.graphs is _UNSET:
+            self.graphs = GraphCache(mel.device) if captures_graphs(mel.device, self.mesh) else None
+        if self.graphs is not None:
+            self._check_owner(dit, opt)
+        scalars = opt.begin_update(learning_rate(update_count(opt), self.train_cfg))
+        fields = (getattr(draws, f.name) for f in dataclasses.fields(Draws))
+        inputs = (mel, text_ids, lengths, *fields, scalars)
+        with self.numerics():
+            if self.graphs is None:
+                opt.zero_grad(set_to_none=True)
+                return self._body(dit, opt, *inputs[:-1], scalars.to(mel.device))
+            return self._replay(dit, opt, inputs)
+
+    def _body(self, dit, opt, mel, text_ids, lengths, t, x0, frac, start_u, drop, scalars):
+        """Forward, backward, clip and AdamW on tensors on the device → the
+        loss. What a graph holds: it reads nothing on the host."""
+        draws = Draws(t, x0, frac, start_u, drop)
+        loss = flow_matching_loss(dit, mel, text_ids, lengths, draws, self.data_group)
+        loss.backward()
+        grads = [p.grad for group in opt.param_groups for p in group["params"]]
+        if self.data_group is not None:
+            flat = comm.all_reduce(torch._utils._flatten_dense_tensors(grads), self.data_group)
+            for g, total in zip(grads, torch._utils._unflatten_dense_tensors(flat, grads)):
+                g.copy_(total)
+            loss = comm.all_reduce(loss.detach(), self.data_group)
+        clip_by_global_norm(grads, self.train_cfg.max_grad_norm, self._sharded,
+                            dit.cfg.model_group)
+        opt.apply(scalars)
+        return loss.detach()
+
+    def _check_owner(self, dit, opt) -> None:
+        if self._owner is None:
+            self._owner = (dit, opt, opt.state)
+        elif any(a is not b for a, b in zip(self._owner, (dit, opt, opt.state))):
+            raise ValueError(
+                "this step's graphs were captured for another model, optimizer or optimizer "
+                "state: load a checkpoint before the first step, one step per model")
+
+    def _replay(self, dit, opt, inputs) -> torch.Tensor:
+        b, n = inputs[0].shape[:2]
+        key = (b, n, self.train_cfg.compute_dtype,
+               torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        # Gradients of None: a new key's eager run makes its own and its
+        # capture allocates them in the pool; a replay writes the pool's.
+        drop_grads = functools.partial(opt.zero_grad, set_to_none=True)
+        drop_grads()
+        loss = self.graphs.run(key, lambda *xs: self._body(dit, opt, *xs), inputs,
+                               prepared=drop_grads, warm_is_call=True)
+        drop_grads()
+        return loss.clone()
+
+
+def make_train_step(dit_cfg: DiTConfig, train_cfg: TrainConfig, mesh=None) -> TrainStep:
+    """Build the :class:`TrainStep` ``step(dit, opt, draws, mel, text_ids,
+    lengths) → loss``.
 
     On a ``mesh`` every rank passes the same global batch and draws; the
     step keeps this rank's rows of the data axis, sums the gradients over
     the data group and returns the global loss."""
-    want = train_dit_config(dit_cfg, train_cfg)
-    numerics = _true_float32 if train_cfg.compute_dtype == "float32" else contextlib.nullcontext
-    data_group = mesh.data_group if mesh is not None else None
-    sharded = None
-
-    def step(dit: DiT, opt, draws: Draws, mel, text_ids, lengths) -> torch.Tensor:
-        nonlocal sharded
-        if dit.cfg != want:
-            raise ValueError(f"the DiT was built with {dit.cfg}, this step trains {want}")
-        if data_group is not None:
-            mel, text_ids, lengths = shard_batch(mesh, mel, text_ids, lengths)
-            rows = mel.shape[0]
-            draws = draws.rows(mesh.data_index * rows, (mesh.data_index + 1) * rows)
-        if sharded is None:
-            sharded = sharded_leaves(dit)
-        with numerics():
-            opt.zero_grad(set_to_none=True)
-            loss = flow_matching_loss(dit, mel, text_ids, lengths, draws, data_group)
-            loss.backward()
-            if data_group is not None:
-                grads = [p.grad for p in dit.parameters()]
-                flat = comm.all_reduce(torch._utils._flatten_dense_tensors(grads), data_group)
-                for g, total in zip(grads, torch._utils._unflatten_dense_tensors(flat, grads)):
-                    g.copy_(total)
-                loss = comm.all_reduce(loss.detach(), data_group)
-            apply_update(opt, train_cfg, sharded, dit.cfg.model_group)
-        return loss.detach()
-
-    return step
+    return TrainStep(dit_cfg, train_cfg, mesh)
 
 
 def as_tensors(mel: np.ndarray, text_ids: np.ndarray, lengths: np.ndarray, device):
