@@ -11,10 +11,12 @@ unavailable or the package is not beside it. Phases, in order (any failed
 check raises):
 
 1. The card's name and power limit, as ``nvidia-smi`` reports them.
-2. Build every CUDA kernel of the package from ``csrc/``, all at once; then
-   count the ``HGMMA`` instructions (the machine code of ``wgmma``) in each
-   library's SASS, which must not be zero: the bfloat16 paths are on the
-   tensor cores.
+2. Build every CUDA source of the package from ``csrc/``, all at once (the
+   two attention kernels and ``graph_fill.cu``, the fill kernel that stands
+   in for the captured graphs' memset nodes); then count the ``HGMMA``
+   instructions (the machine code of ``wgmma``) in each attention library's
+   SASS, which must not be zero: the bfloat16 paths are on the tensor
+   cores.
 3. Each kernel against its plain PyTorch version on the card, at the shapes
    the serving path gives it, in float32 (max-abs ≤ 1e-4: both sides are
    true f32 with TF32 off) and bfloat16 (max-abs ≤ 1e-2, about one bf16 ulp
@@ -48,8 +50,9 @@ check raises):
    ``enable_micro_batching`` and ``warmup`` of the shapes used; eight client
    threads with one short sentence each, released together (twice); the long
    text and two short requests together; the long text streamed through the
-   batcher; then 24 jobs at once with ``pipeline_depth`` 1 and 2 (time from
-   submit to the first resolved future). The phase-5 ``short`` and ``long``
+   batcher; then 24 jobs at once with ``pipeline_depth`` 1 and 2, in the
+   order 1, 2, 2, 1 (time from submit to the first, median and last
+   resolved future; depth 2 against depth 1). The phase-5 ``short`` and ``long``
    must come back within STREAM_TOLERANCE of their solo outputs, with no
    retry and no failure, more than one job per batch, 682 launches of the
    fused kernel per dispatched batch and none of the other, cache hits for
@@ -89,8 +92,8 @@ check raises):
    learning rate every step, in bf16 and in f32 (TF32 off): 8 steps
    bit-identical in every loss, parameter and Adam moment, with each mode's
    step ms, tokens/s, 6·P·tokens against the peak, traced device time and
-   idle share, peak memory, and the graph's capture wall, nodes (and
-   non-kernel nodes) and pool.
+   idle share, peak memory, and the graph's capture wall, nodes by type (no
+   memset; 14 (c) times the launch of graphs of the same steps) and pool.
 10. Conversion day at the F5 widths (``models/f5_fixture.py:FixtureSpec``:
     dim 1024, 16 heads × 64 — kernel 1's head shape — ff_mult 2, text 512 ×
     4 conv layers, 100 mels, vocab 211, vocoder 512/1536/8), from a synthetic
@@ -175,25 +178,38 @@ check raises):
     batch; (c) row 0 of a batch of 32 at 512 frames, dispatched as
     ``bench_batched`` dispatches it, against the same row alone at batch 1
     with the same seed, within STREAM_TOLERANCE.
-14. The captured chunk programs (``runtime/graphs.py``; run after phase 10,
-    before the bench's process starts, on an idle card), on a seeded pack
-    with opened gates: (a) each batch through its CUDA graph twice against
-    the eager program bodies of the same core on the same inputs — the
-    short sentence (bucket 384) and the voice clone (768) on both routes
-    (cached conditioning, waveform) and batch 8 × 1024 — as int16 PCM within
-    STREAM_TOLERANCE, the largest difference printed either way (phase 4
-    holds the mel latent of both routes in float32 and bfloat16 within
-    LATENT_TOLERANCE, 10 (b) the 16 × 64 pack and 13 (c) batch 32 × 512 the
-    same way); (b) four batches of three shapes dispatched out of capture
-    order, two of one shape outstanding, fetched in reverse, each equal to
-    its own eager run; (c) per graph its capture wall, nodes, attention
-    launches, replay device ms and the host's ms to launch it, and the
-    device memory reserved before and after warming the serving grid of the
-    short sentence's bucket; (d) batch 1, eager against graph, interleaved
-    over P14_ROUNDS: the short request, its chunk, the chunk's host
-    dispatch and ``compute_ms_b1``, one traced chunk of each (device kernel
-    time, the device's idle share), and the long text's first streamed
-    piece with the port's one chunk at a time against JAX's two in flight.
+14. The captured chunk programs (``runtime/graphs.py``; run after phase 8,
+    before phase 9, on an idle card and before any ``torch.profiler``
+    session, which leaves CUPTI attached and slows every later graph
+    launch), on a seeded pack with opened gates: (a) each batch through its
+    CUDA graph twice against the eager program bodies of the same core on
+    the same inputs — the short sentence (bucket 384) and the voice clone
+    (768) on both routes (cached conditioning, waveform) and batch 8 × 1024
+    — as int16 PCM within STREAM_TOLERANCE, the largest difference printed
+    either way (phase 4 holds the mel latent of both routes in float32 and
+    bfloat16 within LATENT_TOLERANCE, 10 (b) the 16 × 64 pack and 13 (c)
+    batch 32 × 512 the same way); (b) five batches of three shapes
+    dispatched out of capture order, three of one shape outstanding,
+    fetched in reverse, each equal to its own eager run; (c) each of a DiT
+    block's four GEMMs captured alone at 1 × 2048, 8 × 1024 and 1 × 384
+    (2 · batch rows), with the memset nodes cuBLAS put into the capture,
+    then rewritten: no memset left, replays and the eager call
+    bit-identical, and both replays' device µs; per graph of the phase (the
+    serving grid of the short sentence's bucket, bucket 2048 at batch 1
+    and 8, and (a)'s),
+    then per train step graph at 9 (e)'s shape (bf16 and f32, captured
+    here), its capture wall, nodes by type, nodes rewritten, attention
+    launches, replay device ms and the host's ms to launch it — no memset
+    node and a median launch within HOST_LAUNCH_MS (2 ms), or the phase
+    fails — and the device memory reserved before and after the warm-up;
+    (d) batch 1, eager against graph, interleaved over P14_ROUNDS: the
+    short request, its chunk, the chunk's host dispatch and
+    ``compute_ms_b1``; interleaved over P14_STREAM_ROUNDS, the long text's
+    first streamed piece with the port's order, JAX's (up to three chunks
+    queued), against one chunk at a time: its median no later than one at
+    a time's median plus spread; (e), after phase 13, one traced chunk in
+    each mode (device kernel time, the device's idle share of (d)'s median)
+    and the chunk graph's launch after those traces.
 
 Phases 2-4, 10 (a) and 12 (a) hold each kernel against its plain version;
 the main path whose launches the kernels' record counts is every serving
@@ -386,10 +402,12 @@ def phase_build() -> None:
         build_report, count_sass, load_library)
 
     names = ("fused_rope_attention", "flash_attention")
+    # graph_fill.cu holds the fill kernel that stands in for the captured
+    # graphs' memset nodes (runtime/graphs.py); no tensor-core path.
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
-        list(pool.map(load_library, names))
-    log(f"[2] built {', '.join(names)} in {time.perf_counter() - t0:.2f} s")
+    with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as pool:
+        list(pool.map(load_library, (*names, "graph_fill")))
+    log(f"[2] built {', '.join(names)}, graph_fill in {time.perf_counter() - t0:.2f} s")
     for name in names:
         hgmma = count_sass(name, "HGMMA")
         report = build_report(name)
@@ -972,10 +990,11 @@ def _concurrent_round(label, api, texts, smi, route, per_batch):
     return waves, wall, got[route], (batches, jobs)
 
 
-def _depth_round(engine, text, n_jobs, depth, smi) -> int:
+def _depth_round(engine, text, n_jobs, depth, smi) -> tuple[int, list]:
     """Submit ``n_jobs`` copies of one short request at once to a fresh
     batcher of the given depth; log the time to the first resolved future and
-    to the last. Returns the kernel launches it made."""
+    to the last. Returns the kernel launches it made and the times (s) from
+    submit to each resolved future, sorted."""
     from vietvoice_tts_tpu_torch.serving.batcher import MicroBatcher
 
     ref_audio, ref_text = engine.model_session_manager.select_sample()
@@ -1000,7 +1019,7 @@ def _depth_round(engine, text, n_jobs, depth, smi) -> int:
         log(f"[6] pipeline_depth={depth}: {n_jobs} jobs submitted at once, {stats.batches} "
             f"batches; first future after {times[0] * 1e3:.1f} ms, median "
             f"{statistics.median(times) * 1e3:.1f} ms, last {times[-1] * 1e3:.1f} ms [{smi}]")
-        return _launches()["fused_rope"]
+        return _launches()["fused_rope"], times
     finally:
         engine.batcher.shutdown()
         engine.batcher = None
@@ -1103,15 +1122,25 @@ def phase_batcher(cfg, cfg32, smi: str, solo: dict) -> dict:
     else:
         raise AssertionError("submit after cleanup() did not raise")
 
-    # Submit-to-first-future at depth 1 and 2: three batches of eight.
+    # Submit-to-future at depth 1 and 2, three batches of eight, in the
+    # order 1, 2, 2, 1.
     engine = TTSApi(cfg).engine
     engine.warmup(batches=(8,), buckets=(short_bucket,))
-    for depth in (1, 2):
-        launched = _depth_round(engine, SHORT_TEXT, 24, depth, smi)
+    depth_times = {1: [], 2: []}
+    for depth in (1, 2, 2, 1):
+        launched, times = _depth_round(engine, SHORT_TEXT, 24, depth, smi)
         if launched != 3 * per_batch:
             raise AssertionError(f"depth {depth}: {launched} launches, want {3 * per_batch}")
         total += launched
+        depth_times[depth].append(times)
     engine.cleanup()
+    legs = {"first": 0, "median": None, "last": -1}
+    med = {(d, leg): statistics.median(
+               (statistics.median(t) if i is None else t[i]) * 1e3 for t in runs)
+           for d, runs in depth_times.items() for leg, i in legs.items()}
+    log("[6] pipeline_depth 2 against 1 (medians of 2 rounds each, order 1, 2, 2, 1): "
+        + "; ".join(f"{leg} future {med[2, leg]:.1f} against {med[1, leg]:.1f} ms "
+                    f"({med[2, leg] / med[1, leg]:.3f})" for leg in legs) + f" [{smi}]")
 
     # The 32 × 32 model: four threads, flash_attention.
     api32 = TTSApi(cfg32)
@@ -1395,8 +1424,11 @@ def _train_graph_against_eager(tree: dict, vocab_size: int, smi: str) -> None:
     moment bit-identical after P9_GRAPH_STEPS steps; one capture, no kernel
     launch; step ms (median of steps 2..P9_TIMED), tokens/s, 6·P·tokens
     against the dtype's peak, the device's kernel time and idle share (the
-    last steps traced), the capture's wall, the graph's nodes and its
-    non-kernel nodes (cuBLAS's memsets), the pool and each run's peak."""
+    last steps traced), the capture's wall, the graph's nodes by type (no
+    memset: ``runtime/graphs.py`` rewrites them), the pool and each run's
+    peak. The host's ms to
+    launch a replay is 14 (c)'s: after a ``torch.profiler`` session every
+    launch in the process is slower (PROFILED_LAUNCH)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1476,9 +1508,12 @@ def _train_graph_against_eager(tree: dict, vocab_size: int, smi: str) -> None:
             f"{len(params)} parameters and both Adam moments (losses "
             f"{[round(x, 4) for x in g['losses']]}); 1 capture, {graphs.replays} replays, 0 "
             f"kernel launches; {'; '.join(lines)}; eager/graph {e['ms'] / g['ms']:.2f}; capture "
-            f"{entry.capture_s:.2f} s wall (the eager run included), {entry.graph.nodes} nodes, "
-            f"{entry.graph.nodes - entry.graph.kernel_nodes} of them not kernels; pool "
-            f"{pool[0] / 2**30:.2f} GiB reserved, {pool[1] / 2**30:.2f} GiB allocated [{smi}]")
+            f"{entry.capture_s:.2f} s wall (the eager run included), nodes "
+            f"{entry.graph.node_types} (rewritten as kernels: {entry.graph.rewritten}; 14 (c) "
+            f"times the launch); pool {pool[0] / 2**30:.2f} GiB reserved, "
+            f"{pool[1] / 2**30:.2f} GiB allocated [{smi}]")
+        if entry.graph.node_types["memset"]:
+            raise AssertionError(f"(e) {dtype}: memset nodes left {entry.graph.node_types}")
         del runs, g, e, params, graphs, entry
         torch.cuda.empty_cache()
 
@@ -2747,7 +2782,60 @@ def phase_sweeps(card: str) -> int:
 
 P14_BIG = (8, 1024, 250)  # (batch, frames, reference frames): the bench's batch 8
 P14_ROUNDS = 5  # (d)'s interleaved rounds of eager and graph
-P14_REPLAYS = 2  # (c)'s timed replays of each graph
+# (d)'s interleaved rounds of the two streaming orders: a batch-1 chunk's
+# device time varies by a few ms from run to run, and medians of five
+# rounds put the two orders' first pieces a millisecond apart either way.
+P14_STREAM_ROUNDS = 7
+P14_REPLAYS = 3  # (c)'s timed replays of each graph; the host's launch ms is their median
+# (c): the most a graph's launch may hold the host, median ms. Launches of
+# all-kernel graphs returned in 0.3–1.0 ms on an H100; graphs that held
+# cuBLAS's memset nodes took up to 1,765.6 ms (PERF.md).
+HOST_LAUNCH_MS = 2.0
+# (c): (batch, frames) at which each GEMM of a DiT block is captured alone
+# (2 · batch rows: CFG doubles the batch): the long text's 2048-frame chunk
+# alone, the bench's batch 8 × 1024, and the short request's bucket.
+P14_GEMM_SHAPES = ((1, 2048), (8, 1024), (1, 384))
+P14_GEMM_REPLAYS = 20  # back-to-back replays of each GEMM's graph, timed together
+# torch.profiler leaves CUPTI attached to the process: after a session a
+# serving graph's launch holds the host tens of times longer (PERF.md, PR
+# 12). So phase 14 runs before phase 9 (e) profiles train steps, its
+# traced chunks (e) run after phase 13, and (c) times the train step's graphs
+# itself. (e) logs one launch after its traces (PROFILED_LAUNCH) to show it.
+PROFILED_LAUNCH = "launch after a torch.profiler session"
+
+
+def _graph_row(tag: str, label: str, entry, card: str) -> dict:
+    """One captured graph: its nodes by type, memset nodes rewritten, the
+    median over P14_REPLAYS replays (each on an idle card) of its device ms
+    (CUDA events) and of the host's ms to launch it. Raises if a memset
+    node is left or the launch held the host past HOST_LAUNCH_MS."""
+    import torch
+
+    device_ms, host_ms = [], []
+    for _ in range(P14_REPLAYS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        t0 = time.perf_counter()
+        entry.graph.replay()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        end.synchronize()
+        device_ms.append(start.elapsed_time(end))
+    graph = entry.graph
+    row = dict(label=label, types=graph.node_types, rewritten=graph.rewritten,
+               device_ms=statistics.median(device_ms), host_ms=statistics.median(host_ms),
+               capture_s=entry.capture_s)
+    log(f"{tag} graph {label}: capture {entry.capture_s:.2f} s (eager run and capture), "
+        f"nodes {graph.node_types} (rewritten as kernels: {graph.rewritten}), "
+        f"attention launches {entry.launches}; replay device {row['device_ms']:.2f} ms, host "
+        f"{row['host_ms']:.3f} ms to launch it (medians of {P14_REPLAYS}; host "
+        f"{' '.join(f'{t:.3f}' for t in host_ms)}) [{card}]")
+    if graph.node_types["memset"] or row["host_ms"] > HOST_LAUNCH_MS:
+        raise AssertionError(f"{tag} {label}: {graph.node_types['memset']} memset nodes, "
+                             f"launch held the host {row['host_ms']:.3f} ms "
+                             f"(at most {HOST_LAUNCH_MS})")
+    return row
 
 
 @contextlib.contextmanager
@@ -2791,41 +2879,123 @@ def _replay_vs_eager(label: str, core, args, seed, card: str, route=contextlib.n
     return eager
 
 
-def _graph_table(core, card: str) -> None:
-    """(c) Per captured shape: capture wall, graph nodes (kernels), attention
-    launches, replay device ms (CUDA events) and the host's ms to launch
-    the replay."""
+def _train_graph_rows(tree: dict, vocab_size: int, card: str) -> list:
+    """(c) The train step's graphs of 9 (e) (full width, batch 8 × 256, bf16
+    and f32 with TF32 off), captured here, before any profiler session:
+    two steps (the capture, its eager run the first step, then a replay),
+    then ``_graph_row``."""
     import torch
 
-    for key, entry in core.graphs.entries.items():
-        device_ms, host_ms = [], []
-        for _ in range(P14_REPLAYS):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            start.record()
-            t0 = time.perf_counter()
-            entry.graph.replay()
-            host_ms.append((time.perf_counter() - t0) * 1e3)
-            end.record()
-            end.synchronize()
-            device_ms.append(start.elapsed_time(end))
-        route, b, n = key[:3]
-        log(f"[14] (c) graph {route} B={b} N={n} {key[3].compute_dtype}: capture "
-            f"{entry.capture_s:.2f} s (eager run and capture), {entry.graph.nodes} nodes "
-            f"({entry.graph.kernel_nodes} kernels), attention launches {entry.launches}; "
-            f"replay device {statistics.median(device_ms):.2f} ms, host "
-            f"{statistics.median(host_ms):.3f} ms to launch it (median of {P14_REPLAYS}) "
-            f"[{card}]")
+    from vietvoice_tts_tpu_torch.models.dit import DiTConfig
+    from vietvoice_tts_tpu_torch.training import train as ttrain
+
+    dcfg = DiTConfig(vocab_size=vocab_size)
+    b, n = 8, 256
+    rng = np.random.default_rng(12)
+    ids = np.full((b, n), -1, np.int32)
+    ids[:, :50] = rng.integers(0, vocab_size, (b, 50))
+    batch = ttrain.as_tensors(rng.normal(-4.0, 2.0, (b, n, dcfg.n_mels)).astype(np.float32),
+                              ids, np.full((b,), 187, np.int32), "cuda")
+    rows = []
+    for dtype in ("bfloat16", "float32"):
+        tcfg = ttrain.TrainConfig(compute_dtype=dtype, warmup_steps=2)
+        dit, opt = ttrain.init_train_state(tree, dcfg, tcfg, "cuda")
+        step = ttrain.make_train_step(dcfg, tcfg)
+        for i in range(2):
+            draws = ttrain.draw(torch.Generator().manual_seed(i), b, n, dcfg.n_mels, tcfg)
+            step(dit, opt, draws.to("cuda"), *batch).item()
+        (entry,) = step.graphs.entries.values()
+        rows.append(_graph_row("[14] (c)", f"train step {dtype} B={b} N={n}", entry, card))
+        del dit, opt, step, entry
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _graph_table(core, tree: dict, vocab_size: int, card: str) -> None:
+    """(c) Every graph the phase captured, then the train step's: nodes by
+    type, memsets rewritten, replay device ms and the host's ms to launch
+    it (``_graph_row``: no memset node, launch within HOST_LAUNCH_MS)."""
+    rows = [_graph_row("[14] (c)", f"{key[0]} B={key[1]} N={key[2]} {key[3].compute_dtype}",
+                       entry, card)
+            for key, entry in core.graphs.entries.items()]
+    train = _train_graph_rows(tree, vocab_size, card)
+    rows += train
+    worst = max(rows, key=lambda r: r["host_ms"])
+    log(f"[14] (c) {len(rows)} graphs ({len(train)} train steps): 0 memset nodes "
+        f"({sum(r['rewritten']['memset'] for r in rows)} rewritten as fill kernels, "
+        f"{sum(r['rewritten']['memcpy'] for r in rows)} memcpys as copy kernels; "
+        f"{sum(r['types']['memcpy'] for r in rows)} memcpys left), the longest launch "
+        f"{worst['host_ms']:.3f} ms ({worst['label']}, device {worst['device_ms']:.2f} ms) "
+        f"[{card}]")
+
+
+def _memset_sources(core, card: str) -> None:
+    """(c) Which GEMMs of a DiT block put memset nodes into a capture: each
+    of the four (qkv, attn_out, ff1, ff2) at P14_GEMM_SHAPES in the serving
+    dtype, captured alone as the chunk program captures it, once as
+    captured (its nodes by type) and once rewritten (no memset, the same
+    number of nodes): both replays and the eager call equal bit for bit, and
+    the device µs of a replay of each."""
+    import torch
+
+    from vietvoice_tts_tpu_torch.models.dit import linear
+    from vietvoice_tts_tpu_torch.runtime import graphs
+
+    blk = core.dit.blocks[0]
+    dtype = getattr(torch, core.config.compute_dtype)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    stream = torch.cuda.Stream()
+    for b, n in P14_GEMM_SHAPES:
+        for name in ("qkv", "attn_out", "ff1", "ff2"):
+            layer = getattr(blk, name)
+            x = torch.randn((2 * b, n, layer.in_features), generator=gen,
+                            device="cuda").to(dtype)
+            with torch.inference_mode():
+                eager = linear(x, layer)
+                outs, types, times, rewritten = [], [], [], {"memset": 0, "memcpy": 0}
+                for rewrite in (False, True):
+                    graph = torch.cuda.CUDAGraph(keep_graph=True)
+                    stream.wait_stream(torch.cuda.current_stream())
+                    with torch.cuda.graph(graph, stream=stream):
+                        out = linear(x, layer)
+                    raw = graph.raw_cuda_graph()
+                    if rewrite:
+                        rewritten = graphs.rewrite_graph(raw, x.device)
+                    types.append(graphs.graph_node_types(raw))
+                    graph.instantiate()
+                    graph.replay()
+                    torch.cuda.synchronize()
+                    outs.append(out.clone())
+                    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                    start.record()
+                    for _ in range(P14_GEMM_REPLAYS):
+                        graph.replay()
+                    end.record()
+                    end.synchronize()
+                    times.append(start.elapsed_time(end) / P14_GEMM_REPLAYS * 1e3)
+                    del graph
+            captured, after = types
+            if (after["memset"] or rewritten["memset"] != captured["memset"]
+                    or sum(after.values()) != sum(captured.values())
+                    or not torch.equal(outs[0], outs[1]) or not torch.equal(outs[1], eager)):
+                raise AssertionError(f"[14] (c) {name} at {2 * b} × {n}: captured {captured}, "
+                                     f"rewritten {after} ({rewritten}), replays equal "
+                                     f"{torch.equal(outs[0], outs[1])}, equal to eager "
+                                     f"{torch.equal(outs[1], eager)}")
+            log(f"[14] (c) GEMM {name} [{2 * b} × {n}, {layer.in_features}] → "
+                f"{layer.out_features} {core.config.compute_dtype}, captured alone: "
+                f"nodes {captured}; rewritten: {after}; replays and eager bit-identical; replay "
+                f"{times[0]:.1f} µs as captured, {times[1]:.1f} µs rewritten (mean of "
+                f"{P14_GEMM_REPLAYS}) [{card}]")
 
 
 def _latency_b1(api, core, short, card: str) -> None:
     """(d) Batch 1, eager and graph interleaved in this call: the short
     request, its one chunk, the host's dispatch of that chunk, and
     ``compute_ms_b1`` (the bench's compute leg: bucket 384, inputs already on
-    the card); then one traced chunk of each, its device time and the
-    device's idle share of the chunk's median."""
+    the card). Returns the chunk's median ms in each mode, for
+    ``_traced_chunks``."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from vietvoice_tts_tpu_torch.bench import _batched_inputs
 
@@ -2875,6 +3045,18 @@ def _latency_b1(api, core, short, card: str) -> None:
             f"interleaved; graph {' '.join(f'{t:.1f}' for t in times['graph', leg])}; eager "
             f"{' '.join(f'{t:.1f}' for t in times['eager', leg])}), eager/graph {e / g:.2f} "
             f"[{card}]")
+    return {mode: statistics.median(times[mode, chunk]) for mode in modes}
+
+
+def _traced_chunks(core, short, chunk_ms: dict, card: str) -> None:
+    """(e), last of the script: one batch-1 chunk traced by ``torch.profiler``
+    in each mode, its device kernel time and the device's idle share of the
+    chunk's median; then the host's ms to launch that chunk's graph again,
+    with the profiler's CUPTI still attached (PROFILED_LAUNCH)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    modes = {"graph": contextlib.nullcontext, "eager": lambda: _eager(core)}
     for mode, ctx in modes.items():
         with ctx():
             torch.cuda.synchronize()
@@ -2886,47 +3068,53 @@ def _latency_b1(api, core, short, card: str) -> None:
                    and e.self_device_time_total > 0
                    and not getattr(e, "is_user_annotation", False) and "#" not in e.key]
         device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-        chunk_ms = statistics.median(times[mode, chunk])
-        idle = (f"idle {100 * (1 - device_ms / chunk_ms):.1f}% of the chunk's median "
-                f"{chunk_ms:.1f} ms" if device_ms else "the profiler recorded no device time")
-        log(f"[14] (d) traced batch-1 chunk, {mode}: device kernels {device_ms:.1f} ms in "
+        idle = (f"idle {100 * (1 - device_ms / chunk_ms[mode]):.1f}% of the chunk's median "
+                f"{chunk_ms[mode]:.1f} ms" if device_ms
+                else "the profiler recorded no device time")
+        log(f"[14] (e) traced batch-1 chunk, {mode}: device kernels {device_ms:.1f} ms in "
             f"{sum(e.count for e in kernels)} launches; {idle} [{card}]")
+    b, n = short[2].shape
+    key = next(k for k in core.graphs.entries if k[1:3] == (b, n))
+    host = []
+    for _ in range(P14_REPLAYS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        core.graphs.entries[key].graph.replay()
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    log(f"[14] (e) {PROFILED_LAUNCH}: graph {key[0]} B={b} N={n}, host "
+        f"{statistics.median(host):.3f} ms to launch it (median of {P14_REPLAYS}; (c) timed "
+        f"it before any session) [{card}]")
 
 
 def _first_piece(engine, card: str) -> None:
-    """(d) Streaming's first piece with the port's one dispatch at a time
-    (``TTSEngine._iter_chunk_waves``: chunk k reaches the caller before
-    chunk k+1 is dispatched) against the JAX engine's two in flight (chunk
-    k+1 dispatched before chunk k is fetched, JAX ``pipeline/engine.py:
-    436-458``), interleaved over P14_ROUNDS, for the long text with the
-    bench's 4 s head chunk and without."""
+    """(d) Streaming's first piece with the port's order, which is the JAX
+    engine's (``TTSEngine._iter_chunk_waves``: up to three single-row
+    dispatches queued, the oldest fetched when a third is), against one
+    chunk at a time (chunk k reaches the caller before chunk k+1 is
+    dispatched, the port's order before), interleaved over
+    P14_STREAM_ROUNDS, for the long text with the bench's 4 s head chunk and
+    without; with the medians, each order's spread (largest minus smallest)
+    and the whole stream's wall."""
     import torch
 
     ref_audio, ref_text = engine.model_session_manager.select_sample()
     ref = engine._load_ref(ref_audio).astype(np.float32) / 32768.0
     core = engine.engine_core
 
-    def dispatch(p):
-        wave, ids = engine._chunk_row(p, ref)
-        return core.synthesize_batch_async(
-            wave[None], np.asarray([p.ref_len], np.int32), ids[None],
-            np.asarray([p.total_len], np.int32), seed=np.asarray([p.index], np.uint32))
-
-    def two_in_flight(plans):
-        inflight = []
+    def one_at_a_time(plans):
         for p in plans:
-            inflight.append(dispatch(p))
-            if len(inflight) == 2:
-                yield inflight.pop(0)()
-        for fetch in inflight:
-            yield fetch()
+            wave, ids = engine._chunk_row(p, ref)
+            yield core.synthesize_batch_async(
+                wave[None], np.asarray([p.ref_len], np.int32), ids[None],
+                np.asarray([p.total_len], np.int32), seed=np.asarray([p.index], np.uint32))()
 
-    modes = {"one at a time": lambda plans: engine._iter_chunk_waves(plans, ref),
-             "two in flight": two_in_flight}
+    modes = {"JAX's order (the port's)": lambda plans: engine._iter_chunk_waves(plans, ref),
+             "one at a time": one_at_a_time}
     for cap in (None, 4.0):
         plans = engine._plan_chunks(ref, ref_text, LONG_TEXT, first_chunk_cap=cap)
-        times = {m: [] for m in modes}
-        for rnd in range(P14_ROUNDS + 1):  # round 0 warms the shapes
+        firsts, alls = ({m: [] for m in modes} for _ in range(2))
+        for rnd in range(P14_STREAM_ROUNDS + 1):  # round 0 warms the shapes
             for mode in (list(modes) if rnd % 2 else list(modes)[::-1]):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -2936,23 +3124,32 @@ def _first_piece(engine, card: str) -> None:
                 for _ in pieces:
                     pass
                 if rnd:
-                    times[mode].append(first)
+                    firsts[mode].append(first)
+                    alls[mode].append((time.perf_counter() - t0) * 1e3)
         head = f"{plans[0].bucket}-frame head chunk" + (" (4 s cap)" if cap else "")
         log(f"[14] (d) first streamed piece, {len(plans)} chunks, {head}: "
-            + "; ".join(f"{m} {statistics.median(t):.1f} ms ({' '.join(f'{x:.1f}' for x in t)})"
-                        for m, t in times.items())
-            + f" (medians of {P14_ROUNDS} interleaved) [{card}]")
+            + "; ".join(f"{m} {statistics.median(t):.1f} ms, spread {max(t) - min(t):.1f} "
+                        f"({' '.join(f'{x:.1f}' for x in t)}), whole stream "
+                        f"{statistics.median(alls[m]):.1f} ms"
+                        for m, t in firsts.items())
+            + f" (medians of {P14_STREAM_ROUNDS} interleaved) [{card}]")
+        ours, theirs = (firsts[m] for m in modes)
+        if statistics.median(ours) > statistics.median(theirs) + max(theirs) - min(theirs):
+            raise AssertionError(f"[14] (d) {head}: JAX's order gave the first piece later "
+                                 "than one at a time, beyond its spread")
 
 
-def phase_graphs(cfg, card: str) -> None:
+def phase_graphs(cfg, card: str) -> dict:
     """Phase 14: (a) replay against eager on the same core and inputs at the
     serving shapes, both routes (phases 4, 10 (b) and 13 (c) hold the mel
     latent, the 32 × 32 and 16 × 64 routes and batch 32 × 512 alike); (b)
-    replays out of capture order with two fetches of one shape outstanding;
-    (c) each graph's capture, size and replay times, and the device memory
-    a warm-up of the serving grid takes; (d) batch-1 latency eager against
-    graph, interleaved, and the first streamed piece with one chunk in
-    flight against two."""
+    replays out of capture order with three fetches of one shape
+    outstanding; (c) which GEMMs made memset nodes, each graph's capture,
+    nodes by type, replay and launch times, and the device memory a warm-up
+    of the serving grid takes; (d) batch-1 latency eager against
+    graph, interleaved, and the first streamed piece with JAX's order against
+    one chunk at a time. Returns the batch-1 chunk's median ms in each mode
+    for (e), which traces it at the end of the script (PROFILED_LAUNCH)."""
     import torch
 
     from vietvoice_tts_tpu_torch import TTSApi
@@ -2973,15 +3170,21 @@ def phase_graphs(cfg, card: str) -> None:
     bucket = short[2].shape[1]
 
     # (c) The serving grid of the short request's bucket: every batch size
-    # the micro-batcher dispatches, and the waveform route at batch 1.
+    # the micro-batcher dispatches, and the waveform route at batch 1; and
+    # the largest bucket (the long text's chunks) at batch 1 and 8, whose
+    # graphs held the most memset nodes (examples/torch_graph_grid.py
+    # times the whole grid).
+    big = cfg.frame_buckets[-1]
     gc.collect()
     torch.cuda.empty_cache()  # as every capture does on entering
     torch.cuda.synchronize()
     reserved0 = torch.cuda.memory_reserved()
     t0 = time.perf_counter()
     engine.warmup(buckets=(bucket,))
+    engine.warmup(batches=(1, cfg.max_batch_size), buckets=(big,))
     torch.cuda.synchronize()
     log(f"[14] (c) warmup of bucket {bucket} × batches {cfg.batch_grid()} (+ the waveform "
+        f"route at batch 1) and bucket {big} × (1, {cfg.max_batch_size}) (+ the waveform "
         f"route at batch 1): {core.graph_captures} graphs captured in "
         f"{time.perf_counter() - t0:.1f} s; device memory reserved "
         f"{reserved0 / 2**30:.2f} → {torch.cuda.memory_reserved() / 2**30:.2f} GiB [{card}]")
@@ -2996,11 +3199,13 @@ def phase_graphs(cfg, card: str) -> None:
     b, n, ref = P14_BIG
     _replay_vs_eager(f"8x128 batch {b} × {n}", core, _batched_inputs(b, n, ref, hop), 1, card)
 
-    # (b) Out of capture order, two fetches of one shape outstanding.
+    # (b) Out of capture order, three fetches of one shape outstanding.
     with _eager(core):
-        eager["short", "seed 5"] = core.synthesize_batch(*short, seed=5)
+        for seed in (5, 6):
+            eager["short", f"seed {seed}"] = core.synthesize_batch(*short, seed=seed)
     order = [("clone", "cached conditioning", clone, 0, contextlib.nullcontext),
              ("short", "seed 5", short, 5, contextlib.nullcontext),
+             ("short", "seed 6", short, 6, contextlib.nullcontext),
              ("short", "cached conditioning", short, 0, contextlib.nullcontext),
              ("short", "waveform", short, 0, _waveform_route)]
     fetches = []
@@ -3011,12 +3216,31 @@ def phase_graphs(cfg, card: str) -> None:
         got, want = fetch(), eager[label, route]
         if not np.array_equal(got, want):
             _pcm_gap("[14] (b)", f"{label} {route}, interleaved", got, want, card)
-    log(f"[14] (b) four batches of three graphs dispatched out of capture order, two of one "
-        f"shape outstanding, fetched in reverse: each equal to its own eager run [{card}]")
+    log(f"[14] (b) five batches of three graphs dispatched out of capture order, three of "
+        f"one shape outstanding, fetched in reverse: each equal to its own eager run [{card}]")
 
-    _graph_table(core, card)
-    _latency_b1(api, core, short, card)
+    _memset_sources(core, card)
+    _graph_table(core, params["dit"], vocab, card)
+    chunk_ms = _latency_b1(api, core, short, card)
     _first_piece(engine, card)
+    api.cleanup()
+    return chunk_ms
+
+
+def phase_traced(cfg, chunk_ms: dict, card: str) -> None:
+    """Phase 14 (e), last of the script: the short request's batch-1 chunk
+    traced in each mode (``_traced_chunks``) on a core of its own with
+    opened gates, against 14 (d)'s medians."""
+    from vietvoice_tts_tpu_torch import TTSApi
+    from vietvoice_tts_tpu_torch.runtime.engine_core import EngineCore
+
+    api = TTSApi(cfg)
+    engine = api.engine
+    mgr = engine.model_session_manager
+    engine.engine_core = core = EngineCore(cfg, _perturbed_gates(mgr.params), mgr.vocab_size)
+    short = _chunk_inputs(engine, SHORT_TEXT)
+    core.synthesize_batch(*short, seed=0)  # the capture
+    _traced_chunks(core, short, chunk_ms, card)
     api.cleanup()
 
 
@@ -3236,10 +3460,12 @@ def main() -> int:
     batched = phase(6, phase_batcher, cfg, cfg32, smi, solo)
     phase(7, phase_cli, cfg, smi)
     rest_launches = phase(8, phase_rest, cfg, smi)
+    # Replay against eager on an idle card, and the graphs' launch times
+    # before 9 (e) and 12 (e) attach the profiler (PROFILED_LAUNCH); its
+    # traced chunks (e) come last.
+    chunk_ms = phase(14, phase_graphs, cfg, card)
     trained_launches = phase(9, phase_training, cfg, smi)
     converted_launches = phase(10, phase_conversion, smi)
-    # Replay against eager on an idle card, after phase 10 made the 16 × 64 pack.
-    phase(14, phase_graphs, cfg, card)
     # 13 (a), the bench's own process, runs beside phase 11 and is awaited
     # before phase 12, whose times must be the card's alone.
     bench = start_bench_process()
@@ -3252,6 +3478,7 @@ def main() -> int:
             bench[0].communicate()
     sweep_launches = phase(12, phase_sweeps, card)
     bench_launches += phase(13, phase_bench, cfg, smi)
+    phase("14 (e)", phase_traced, cfg, chunk_ms, card)
     log(f"[walls] {', '.join(f'phase {k} {v:.1f} s' for k, v in walls.items())}; "
         f"all phases {time.perf_counter() - t_script:.1f} s [{smi}]")
     launches = {

@@ -10,14 +10,17 @@ micro-batcher dispatches (``config.batch_grid()``) at every frame bucket,
 and the waveform route at batch 1, one captured graph each
 (``runtime/graphs.py``). It prints the device memory reserved and allocated
 before and after (the graphs share one pool), the warm-up's wall, and per
-graph its capture wall (an eager run and the capture), its nodes and kernel
-nodes, one replay's device ms (CUDA events) and the host's ms to launch that
-replay. Each line names the card and its power limit; the whole table is
-written as JSON (default ``build/graph_grid.json``).
+graph its capture wall (an eager run and the capture), its nodes by type
+(kernel, memset, memcpy, event, host, other), the memset and memcpy nodes
+the rewrite turned into kernels, and the median over three
+replays of its device ms (CUDA events) and of the host's ms to launch it.
+Each line names the card and its power limit; the whole table is written as
+JSON (default ``build/graph_grid.json``).
 """
 
 import gc
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -58,23 +61,32 @@ print(f"warmup of {len(core.graphs.entries)} graphs (batches {engine.config.batc
 rows = []
 for key, entry in core.graphs.entries.items():
     route, b, n = key[:3]
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    t0 = time.perf_counter()
-    entry.graph.replay()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    end.record()
-    end.synchronize()
+    device_ms, host_ms = [], []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        t0 = time.perf_counter()
+        entry.graph.replay()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        end.synchronize()
+        device_ms.append(start.elapsed_time(end))
     row = {"route": route, "batch": b, "frames": n, "capture_s": round(entry.capture_s, 3),
-           "nodes": entry.graph.nodes, "kernel_nodes": entry.graph.kernel_nodes,
-           "replay_device_ms": round(start.elapsed_time(end), 3),
-           "replay_host_ms": round(host_ms, 3)}
+           "nodes": entry.graph.node_types, "rewritten": entry.graph.rewritten,
+           "replay_device_ms": round(statistics.median(device_ms), 3),
+           "replay_host_ms": round(statistics.median(host_ms), 3)}
     rows.append(row)
     print(json.dumps(row), flush=True)
 out.parent.mkdir(parents=True, exist_ok=True)
 out.write_text(json.dumps({"card": smi, "warmup_s": wall, "reserved_bytes": after[0] - before[0],
                            "allocated_bytes": after[1] - before[1], "graphs": rows}, indent=1))
+worst = max(rows, key=lambda r: r["replay_host_ms"])
 print(f"{len(rows)} graphs; capture {sum(r['capture_s'] for r in rows):.1f} s in all, replay "
-      f"device {sum(r['replay_device_ms'] for r in rows) / 1e3:.1f} s in all [{smi}]")
+      f"device {sum(r['replay_device_ms'] for r in rows) / 1e3:.1f} s in all; memset nodes "
+      f"left {sum(r['nodes']['memset'] for r in rows)}, rewritten "
+      f"{sum(r['rewritten']['memset'] for r in rows)}; memcpy nodes rewritten "
+      f"{sum(r['rewritten']['memcpy'] for r in rows)}, left "
+      f"{sum(r['nodes']['memcpy'] for r in rows)}; longest launch {worst['replay_host_ms']} ms "
+      f"(B={worst['batch']} N={worst['frames']}) [{smi}]")
 api.cleanup()

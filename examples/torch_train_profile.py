@@ -20,8 +20,8 @@ prints, in ms:
 
 With ``--graph`` it compares the step as the trainer runs it on the card, a
 replay of a CUDA graph captured for its shape (``TrainStep``), with the
-eager step, from one initial state each: the capture (its wall, nodes and
-non-kernel nodes, the pool), then 10 rounds that take one step of each in
+eager step, from one initial state each: the capture (its wall, nodes by
+type, the pool), then 10 rounds that take one step of each in
 alternating order, printing for each mode the median wall (for the graph
 also the replay's device span by CUDA events queued around it, so wall −
 span is host time with the device idle, and how long its launch holds the
@@ -140,8 +140,8 @@ if graph_mode:
 
     entry.graph.replay = timed_replay
     print(f"graph of ({batch}, {frames}, {dtype}): capture {entry.capture_s:.2f} s wall (its "
-          f"eager run included), {entry.graph.nodes} nodes, "
-          f"{entry.graph.nodes - entry.graph.kernel_nodes} of them not kernels; pool "
+          f"eager run included), nodes by type {entry.graph.node_types} (rewritten as "
+          f"kernels: {entry.graph.rewritten}); pool "
           f"{pool[0] / 2**30:.2f} GiB reserved, {pool[1] / 2**30:.3f} GiB allocated; device "
           f"memory reserved +{(torch.cuda.memory_reserved() - before) / 2**30:.2f} GiB (the "
           f"Adam state included) [{smi}]", flush=True)

@@ -734,3 +734,177 @@ def test_cuda_train_step_replays_equal_eager_steps(cuda_device, dtype):
         assert torch.equal(p, q), name
         for k in ("exp_avg", "exp_avg_sq"):
             assert torch.equal(opt_g.state[p][k], opt_e.state[q][k]), (name, k)
+
+
+# -- memset and memcpy nodes of a captured graph rewritten as kernels ----------
+
+
+def _capture(fn, rewrite: bool):
+    """``fn`` captured into a graph kept after capture; with ``rewrite`` its
+    memset and memcpy nodes are replaced by kernels
+    (``graphs.rewrite_graph``) before instantiation. Returns (graph, nodes
+    by type as captured, nodes by type after)."""
+    from vietvoice_tts_tpu_torch.runtime import graphs
+
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    raw = graph.raw_cuda_graph()
+    captured = graphs.graph_node_types(raw)
+    rewritten = (graphs.rewrite_graph(raw, torch.device("cuda")) if rewrite
+                 else {"memset": 0, "memcpy": 0})
+    after = graphs.graph_node_types(raw)
+    assert rewritten["memset"] == (captured["memset"] if rewrite else 0)
+    assert after["memcpy"] == captured["memcpy"] - rewritten["memcpy"]
+    graph.instantiate()
+    return graph, captured, after
+
+
+_DRIVER_MEMSETS = {1: ("cuMemsetD8Async", "cuMemsetD2D8Async", ctypes.c_ubyte),
+                   2: ("cuMemsetD16Async", "cuMemsetD2D16Async", ctypes.c_ushort),
+                   4: ("cuMemsetD32Async", "cuMemsetD2D32Async", ctypes.c_uint)}
+
+
+@pytest.mark.parametrize("element_size", [1, 2, 4])
+def test_cuda_rewritten_memsets_write_the_same_bytes(cuda_device, element_size):
+    """Three memsets queued on the capture stream through the CUDA driver (what
+    ``cudaMemsetAsync`` and ``cudaMemset2DAsync`` call) between two kernels:
+    a flat one and one of 5 rows with a pitch, both starting off a 16-byte
+    boundary and ending off one, and a flat one of 24 MiB (more 16-byte
+    chunks than the fill kernel's grid has threads). Captured, they are 3
+    memset nodes. Rewritten, the graph holds none and as many nodes; its
+    replay equals the captured graph's replay and numpy's fill byte for
+    byte."""
+    d8, d2d, value_type = _DRIVER_MEMSETS[element_size]
+    cuda = ctypes.CDLL("libcuda.so.1")
+    value = {1: 0xA7, 2: 0xB2A7, 4: 0xD4C3B2A7}[element_size]
+    offset, width, pitch, rows = 3 * element_size, 1001, 4096 + 8 * element_size, 5
+    offset2 = offset + 4096  # the 2D memset's first row
+    offset3, width3 = offset2 + rows * pitch, (24 << 20) // element_size  # the large one
+    start = torch.from_numpy(np.random.default_rng(element_size).integers(
+        0, 256, offset3 + (24 << 20) + 16, dtype=np.uint8)).to(cuda_device)
+    buf, out = torch.empty_like(start), torch.empty_like(start)
+
+    def program():
+        buf.bitwise_xor_(0x5A)
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        fn = getattr(cuda, d8)
+        fn.argtypes = [ctypes.c_ulonglong, value_type, ctypes.c_size_t, ctypes.c_void_p]
+        assert fn(buf.data_ptr() + offset, value, width, stream) == 0
+        assert fn(buf.data_ptr() + offset3, value, width3, stream) == 0
+        fn = getattr(cuda, d2d)
+        fn.argtypes = [ctypes.c_ulonglong, ctypes.c_size_t, value_type, ctypes.c_size_t,
+                       ctypes.c_size_t, ctypes.c_void_p]
+        assert fn(buf.data_ptr() + offset2, pitch, value, width, rows, stream) == 0
+        torch.bitwise_xor(buf, 0x3C, out=out)
+
+    results = []
+    for rewrite in (False, True):
+        graph, captured, after = _capture(program, rewrite)
+        assert captured["memset"] == 3
+        if rewrite:
+            assert after["memset"] == 0 and after["kernel"] == captured["kernel"] + 3
+            assert sum(after.values()) == sum(captured.values())
+        buf.copy_(start)
+        graph.replay()
+        torch.cuda.synchronize()
+        results.append(out.cpu().numpy())
+    want = start.cpu().numpy() ^ 0x5A
+    pattern = np.frombuffer(np.array([value], f"<u{element_size}").tobytes() * width, np.uint8)
+    want[offset: offset + pattern.size] = pattern
+    for r in range(rows):
+        row = offset2 + r * pitch
+        want[row: row + pattern.size] = pattern
+    want[offset3: offset3 + (24 << 20)] = np.resize(pattern, 24 << 20)
+    np.testing.assert_array_equal(results[0], want ^ 0x3C)
+    np.testing.assert_array_equal(results[1], results[0])
+
+
+class _Memcpy2D(ctypes.Structure):
+    """The driver's CUDA_MEMCPY2D."""
+
+    _fields_ = [(f"{side}{name}", kind) for side in ("src", "dst") for name, kind in (
+        ("XInBytes", ctypes.c_size_t), ("Y", ctypes.c_size_t), ("MemoryType", ctypes.c_int),
+        ("Host", ctypes.c_void_p), ("Device", ctypes.c_ulonglong), ("Array", ctypes.c_void_p),
+        ("Pitch", ctypes.c_size_t))] + [("WidthInBytes", ctypes.c_size_t),
+                                        ("Height", ctypes.c_size_t)]
+
+
+def test_cuda_rewritten_memcpys_copy_the_same_bytes(cuda_device):
+    """Device-to-device copies between two kernels: two flat ones
+    (``copy_`` of contiguous slices, one off every word boundary, one on
+    16-byte boundaries) and one of 3 rows with pitches and offsets
+    (``cuMemcpy2DAsync``), captured as 3 memcpy nodes. Rewritten, the graph
+    holds none and as many nodes; its replay equals the captured graph's and
+    numpy's copy byte for byte."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    rng = np.random.default_rng(11)
+    start = torch.from_numpy(rng.integers(0, 256, 3 * 4112, dtype=np.uint8)).to(cuda_device)
+    src, dst, out = (torch.empty_like(start) for _ in range(3))
+    flat = ((3, 5, 1001), (8192, 4096, 1024))  # (src offset, dst offset, bytes)
+    rows = dict(src_x=7, src_y=1, src_pitch=4112, dst_x=1, dst_y=0, dst_pitch=2052,
+                width=1000, height=2)
+
+    def program():
+        src.bitwise_xor_(0x5A)
+        for so, do, n in flat:
+            dst[do:do + n].copy_(src[so:so + n])
+        copy = _Memcpy2D(
+            srcXInBytes=rows["src_x"], srcY=rows["src_y"], srcMemoryType=2,
+            srcDevice=src.data_ptr(), srcPitch=rows["src_pitch"], dstXInBytes=rows["dst_x"],
+            dstY=rows["dst_y"], dstMemoryType=2, dstDevice=dst.data_ptr() + 6144,
+            dstPitch=rows["dst_pitch"], WidthInBytes=rows["width"], Height=rows["height"])
+        fn = cuda.cuMemcpy2DAsync_v2
+        fn.argtypes = [ctypes.POINTER(_Memcpy2D), ctypes.c_void_p]
+        assert fn(ctypes.byref(copy), torch.cuda.current_stream().cuda_stream) == 0
+        torch.bitwise_xor(dst, 0x3C, out=out)
+
+    results = []
+    for rewrite in (False, True):
+        graph, captured, after = _capture(program, rewrite)
+        assert captured["memcpy"] == 3
+        if rewrite:
+            assert after["memcpy"] == 0 and after["kernel"] == captured["kernel"] + 3
+            assert sum(after.values()) == sum(captured.values())
+        src.copy_(start)
+        dst.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        results.append(out.cpu().numpy())
+    a = start.cpu().numpy() ^ 0x5A
+    want = np.zeros_like(a)
+    for so, do, n in flat:
+        want[do:do + n] = a[so:so + n]
+    for r in range(rows["height"]):
+        s0 = (rows["src_y"] + r) * rows["src_pitch"] + rows["src_x"]
+        d0 = 6144 + (rows["dst_y"] + r) * rows["dst_pitch"] + rows["dst_x"]
+        want[d0:d0 + rows["width"]] = a[s0:s0 + rows["width"]]
+    np.testing.assert_array_equal(results[0], want ^ 0x3C)
+    np.testing.assert_array_equal(results[1], results[0])
+
+
+def test_cuda_three_outstanding_fetches_of_one_graph(cuda_device, tmp_path):
+    """Three batches of one shape (one graph) queued before any is fetched,
+    then fetched newest first: each equals its own batch run alone. The
+    static output is copied out behind each replay, on the same stream,
+    before the next replay overwrites it."""
+    import vietvoice_tts_tpu_torch as vt
+
+    with vt.TTSApi(_tiny_cuda_config(tmp_path)) as api:
+        engine = api.engine
+        core = engine.engine_core
+        ref_audio, ref_text = engine.model_session_manager.select_sample()
+        ref = engine._load_ref(ref_audio).astype(np.float32) / 32768.0
+        (plan,) = engine._plan_chunks(ref, ref_text, "Xin chào, hôm nay trời rất đẹp.")
+        wave, ids = engine._chunk_row(plan, ref)
+        args = (wave[None], np.array([plan.ref_len]), ids[None], np.array([plan.total_len]))
+        alone = [core.synthesize_batch(*args, seed=s) for s in (0, 1, 2)]
+        replays = core.graph_replays
+        fetches = [core.synthesize_batch_async(*args, seed=s) for s in (0, 1, 2)]
+        got = [f() for f in reversed(fetches)][::-1]
+        assert core.graph_replays - replays == 3 and core.graph_captures == 1
+    assert not np.array_equal(alone[0], alone[1])
+    for g, want in zip(got, alone, strict=True):
+        np.testing.assert_array_equal(g, want)

@@ -8,11 +8,14 @@ dispatches each chunk as a batch of one, blocking one batch per bucket, and
 per-row noise makes their inputs equal. On the CPU the two are byte-identical
 with the shipped pack (zero AdaLN gates) and with opened gates alike, so the
 tests assert equality; what the card gives is stated by ``chip_smoke.py``.
+Direct streaming's order of dispatches, fetches and pieces is held against
+the JAX engine's ``_iter_chunk_waves`` on spy cores.
 """
 
 import dataclasses
 import os
 import random
+import types
 from pathlib import Path
 
 import numpy as np
@@ -23,6 +26,7 @@ from test_torch_slice import _open_gates, port_config
 
 import vietvoice_tts_tpu_torch as vt
 from vietvoice_tts_tpu.pipeline import audio as jaudio
+from vietvoice_tts_tpu.pipeline import engine as jengine
 from vietvoice_tts_tpu_torch import deterministic
 from vietvoice_tts_tpu_torch.pipeline import audio as taudio
 from vietvoice_tts_tpu_torch.runtime.engine_core import EngineCore
@@ -197,39 +201,84 @@ def test_stream_equals_blocking_with_opened_gates(tiny_pack_dir):
     np.testing.assert_array_equal(stream, wave)
 
 
-def test_each_chunk_is_yielded_before_the_next_is_dispatched(engine, monkeypatch):
-    """One single-row dispatch at a time: the caller has chunk k before the
-    host starts queueing chunk k+1 (see TTSEngine._iter_chunk_waves; the JAX
-    engine's two in flight gave the first piece later on the card). Each
-    streamed chunk equals its blocking run."""
-    events = []
-    dispatch = engine.engine_core.synthesize_batch_async
+class _SpyCore:
+    """An engine core that records ``("dispatch", i)`` when chunk i's
+    single-row batch is dispatched and ``("fetch", i)`` when its result is
+    fetched. With ``dispatch`` it runs the real batch; else it returns a row
+    of i's."""
 
-    def spy(*args, **kw):
-        index = int(kw["seed"][0])
+    def __init__(self, events, dispatch=None):
+        self.events, self.dispatch = events, dispatch
+
+    def synthesize_batch_async(self, *args, **kw):
+        index = int(np.asarray(kw["seed"])[0])
         assert args[0].shape[0] == 1
-        events.append(("dispatch", index))
-        fetch = dispatch(*args, **kw)
+        self.events.append(("dispatch", index))
+        run = (self.dispatch(*args, **kw) if self.dispatch
+               else lambda: np.full((1, 4), index, np.int16))
 
-        def counted():
-            events.append(("fetch", index))
-            return fetch()
+        def fetch():
+            self.events.append(("fetch", index))
+            return run()
 
-        return counted
+        return fetch
 
-    monkeypatch.setattr(engine.engine_core, "synthesize_batch_async", spy)
+    def pick_trim(self, *args):
+        return 0
+
+
+def _drive(iter_chunk_waves, engine, plans, ref, events):
+    """Consume the generator, recording ``("piece", i)`` as chunk i arrives."""
+    pieces = []
+    for p, wave in zip(plans, iter_chunk_waves(engine, plans, ref), strict=True):
+        events.append(("piece", p.index))
+        pieces.append(wave)
+    return pieces
+
+
+def _stub_engine(core):
+    return types.SimpleNamespace(
+        batcher=None, engine_core=core,
+        _chunk_row=lambda p, ref: (np.zeros(4, np.float32), np.zeros(4, np.int32)),
+        _slice_output=lambda p, out, trim=0: out)
+
+
+@pytest.mark.parametrize("n_chunks", [1, 2, 3, 5])
+def test_direct_streaming_dispatches_as_jax_does(n_chunks):
+    """Direct mode's dispatches, fetches and yielded pieces come in the JAX
+    engine's order: up to three single-row dispatches queued, the oldest
+    fetched and yielded when a third is queued, then the rest in order."""
+    plans = [types.SimpleNamespace(index=i, ref_len=8, total_len=16, bucket=32)
+             for i in range(n_chunks)]
+    ref = np.zeros(64, np.float32)
+    ours, theirs = [], []
+    got = _drive(vt.TTSEngine._iter_chunk_waves, _stub_engine(_SpyCore(ours)), plans, ref, ours)
+    _drive(jengine.TTSEngine._iter_chunk_waves, _stub_engine(_SpyCore(theirs)), plans, ref,
+           theirs)
+    assert ours == theirs
+    assert [int(w[0]) for w in got] == list(range(n_chunks))
+    if n_chunks == 5:
+        assert ours[:4] == [("dispatch", 0), ("dispatch", 1), ("dispatch", 2), ("fetch", 0)]
+
+
+def test_each_streamed_chunk_equals_its_blocking_run(engine, monkeypatch):
+    """On the port's engine: JAX's order (as the stub above records it) and,
+    chunk by chunk, the blocking batched run's output."""
+    events = []
+    core = engine.engine_core
+    monkeypatch.setattr(core, "synthesize_batch_async",
+                        _SpyCore(events, core.synthesize_batch_async).synthesize_batch_async)
     ref_audio, ref_text = engine.model_session_manager.select_sample()
     ref = engine._load_ref(ref_audio).astype(np.float32) / 32768.0
     plans = engine._plan_chunks(ref, ref_text, LONG)
     assert len(plans) >= 3
-    streamed = []
-    for k, wave in enumerate(engine._iter_chunk_waves(plans, ref)):
-        assert wave.dtype == np.int16 and wave.size
-        assert events == [(kind, i) for i in range(k + 1) for kind in ("dispatch", "fetch")]
-        streamed.append(wave)
-    assert len(events) == 2 * len(plans)
-    for got, want in zip(streamed, engine._run_chunks(plans, ref), strict=True):
-        np.testing.assert_array_equal(got, want)
+    streamed = _drive(type(engine)._iter_chunk_waves, engine, plans, ref, events)
+    want = []
+    _drive(jengine.TTSEngine._iter_chunk_waves, _stub_engine(_SpyCore(want)), plans, ref, want)
+    assert events == want
+    for got, blocking in zip(streamed, engine._run_chunks(plans, ref), strict=True):
+        assert got.dtype == np.int16 and got.size
+        np.testing.assert_array_equal(got, blocking)
 
 
 def test_async_batch_equals_blocking_batch(engine):

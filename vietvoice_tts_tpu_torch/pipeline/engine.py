@@ -6,8 +6,8 @@ constructor/context-manager/cleanup, ``synthesize(...)`` returning
 chunking policy (speaking rate from the reference clip, 20 s chunk cap, 1 s
 safety margin, recursive re-split). Chunks are padded into frame buckets and
 run through :class:`EngineCore`. In direct mode they go as batches for
-``synthesize`` and as single rows, one after the other, for
-``synthesize_streaming``; with ``enable_micro_batching`` every chunk is a job
+``synthesize`` and as single rows, up to three queued as the JAX engine
+queues them, for ``synthesize_streaming``; with ``enable_micro_batching`` every chunk is a job
 of the shared :class:`~..serving.batcher.MicroBatcher`, which batches the
 chunks of concurrent requests together. Under a mesh (``mesh=``) every
 rank runs the same ``synthesize`` call and dispatches the same batches; a
@@ -19,6 +19,7 @@ from __future__ import annotations
 import hashlib
 import os
 import time
+from collections import deque
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -377,20 +378,26 @@ class TTSEngine:
         Batcher mode submits everything up front: the batcher's dispatcher
         thread queues the batches and its fetcher resolves each at its
         event, so chunks of one bucket that ride one batch come together.
-        Direct mode runs single-row dispatches, one at a time: chunk k is
-        handed to the caller before chunk k+1 is dispatched. The JAX engine
-        keeps two in flight. Here a dispatch is one graph replay, but the
-        launch of a 2048-frame chunk's graph (which holds cuBLAS's memset
-        nodes) blocks the host for ~70 ms, so with chunk k+1 dispatched
-        first chunk k reached the caller later: 350.6 ms against 279.6 ms
-        for the first piece with a 2048-frame head chunk, 158.5 against
-        87.4 ms with the 4 s head, on an H100 (``chip_smoke.py`` phase 14
-        (d), ``PERF.md``). The device waits only the milliseconds between a
-        fetch and the next replay."""
+        Direct mode dispatches as the JAX engine does (its
+        ``pipeline/engine.py:436-458``): single-row dispatches, each
+        appended to a queue, and the oldest fetched and yielded once more
+        than two are queued, so up to three chunks are on the device while
+        the caller consumes the oldest; then the rest in order. A dispatch
+        is one graph replay, whose launch returns without waiting for the
+        device (``runtime/graphs.py`` rewrites cuBLAS's memset nodes, which
+        held the launch of a 2048-frame chunk's graph ~70 ms), so chunk k+1
+        and k+2 are queued behind chunk k without delaying it: on an H100
+        (700 W) the first piece came after 271.5 ms against 271.7 ms one
+        chunk at a time with a 2048-frame head chunk, 86.9 against 87.0 ms
+        with the 4 s head, and the whole stream 5–6 ms sooner
+        (``chip_smoke.py`` phase 14 (d), ``PERF.md``). Each replay's output
+        is copied out behind it on the same stream, before the next replay
+        of the shape overwrites it."""
         if self.batcher is not None:
             for p, j in self._submit_chunks(plans, ref_audio_f32):
                 yield self._slice_output(p, j.future.result())
             return
+        inflight: deque = deque()
         for p in plans:
             wave, ids = self._chunk_row(p, ref_audio_f32)
             fetch = self.engine_core.synthesize_batch_async(
@@ -400,7 +407,13 @@ class TTSEngine:
                 np.asarray([p.total_len], np.int32),
                 seed=np.asarray([p.index], np.uint32),
             )
-            yield self._slice_output(p, fetch()[0])
+            inflight.append((p, fetch))
+            if len(inflight) > 2:
+                p0, f0 = inflight.popleft()
+                yield self._slice_output(p0, f0()[0])
+        while inflight:
+            p0, f0 = inflight.popleft()
+            yield self._slice_output(p0, f0()[0])
 
     def synthesize_streaming(
         self,

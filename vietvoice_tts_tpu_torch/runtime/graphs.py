@@ -18,6 +18,19 @@ static output, and a batch is one replay of it:
   thread captures: the micro-batcher's fetcher waiting on an event, or the
   REST app's warm-up thread beside a request. A capture that fails raises
   to the caller. Nothing falls back to eager.
+- Between capture and instantiation every memset node of the graph is
+  rewritten as a kernel node that writes the same bytes, and every memcpy
+  node between linear memory as a kernel node that copies them, with the
+  same edges (:func:`rewrite_graph`, ``csrc/graph_fill.cu``). cuBLAS puts
+  ``cudaMemsetAsync`` calls into a capture at some GEMM shapes; a graph
+  that held them (686–2,808 beside ~17,600 kernels) held the host in its
+  launch for 25–82% of its device time on an H100; rewritten, every graph's
+  launch returned in 0.2–0.5 ms (``chip_smoke.py`` phase 14 (c)). The
+  GEMMs keep cuBLAS's
+  algorithms, so a replay stays bit-identical to the eager program. A
+  rewrite that fails raises; no graph is instantiated with its memsets.
+  Each graph's nodes are counted by type (:func:`graph_node_types`:
+  kernel, memset, memcpy, event, host, other).
 - Every graph of a cache shares one memory pool. Static inputs are
   allocated outside it. Static outputs are held by their entries, so no
   later capture reuses their blocks. The intermediates of different graphs
@@ -46,11 +59,17 @@ from typing import Any, Callable
 import torch
 
 from ..ops.kernels import add_launches, launch_counts
+from ..ops.kernels.build import load_library
 from ..utils.logging import get_logger
 
 log = get_logger("graphs")
 
-_CU_GRAPH_NODE_TYPE_KERNEL = 0  # CUgraphNodeType
+# CUgraphNodeType, the driver's node types, by the names a count uses;
+# the others (child graph, empty, semaphore, allocation and conditional
+# nodes) count as "other".
+_NODE_TYPE_NAMES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
+                    6: "event", 7: "event"}
+NODE_TYPES = ("kernel", "memset", "memcpy", "event", "host", "other")
 
 # Captures and replays by this process, over every cache; callers may reset
 # them to 0 (a run shows with them that each batch was one replay).
@@ -58,24 +77,45 @@ captures = 0
 replays = 0
 
 
-def _graph_nodes(raw_graph: int) -> tuple[int, int]:
-    """(nodes, kernel nodes) of a captured ``cudaGraph_t``, through the
-    driver API (``cuGraphGetNodes``, ``cuGraphNodeGetType``)."""
+def graph_node_types(raw_graph: int) -> dict[str, int]:
+    """Nodes of a ``cudaGraph_t`` by type (:data:`NODE_TYPES`; wait and
+    record event nodes are both "event"), through the driver API
+    (``cuGraphGetNodes``, ``cuGraphNodeGetType``)."""
     cuda = ctypes.CDLL("libcuda.so.1")
     graph = ctypes.c_void_p(raw_graph)
     count = ctypes.c_size_t(0)
     if cuda.cuGraphGetNodes(graph, None, ctypes.byref(count)) != 0:
         raise RuntimeError("cuGraphGetNodes failed")
     nodes = (ctypes.c_void_p * count.value)()
-    if cuda.cuGraphGetNodes(graph, nodes, ctypes.byref(count)) != 0:
+    if count.value and cuda.cuGraphGetNodes(graph, nodes, ctypes.byref(count)) != 0:
         raise RuntimeError("cuGraphGetNodes failed")
     kind = ctypes.c_int()
-    kernels = 0
+    types = dict.fromkeys(NODE_TYPES, 0)
     for node in nodes:
         if cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
             raise RuntimeError("cuGraphNodeGetType failed")
-        kernels += kind.value == _CU_GRAPH_NODE_TYPE_KERNEL
-    return count.value, kernels
+        types[_NODE_TYPE_NAMES.get(kind.value, "other")] += 1
+    return types
+
+
+def rewrite_graph(raw_graph: int, device: torch.device) -> dict[str, int]:
+    """Replace every memset node of a captured, not yet instantiated
+    ``cudaGraph_t`` by a kernel node that writes the same bytes, and every
+    memcpy node between linear memory that a kernel reaches by a kernel node
+    that copies the same bytes, each with the same edges
+    (``csrc/graph_fill.cu``). Returns how many of each were replaced. Raises
+    on a driver error: the graph is then not to be instantiated."""
+    fn = load_library("graph_fill").vv_graph_rewrite
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    counts = (ctypes.c_int * 2)()
+    with torch.cuda.device(device):
+        err = fn(raw_graph, counts)
+    if err != 0:
+        raise RuntimeError(
+            f"rewriting a captured graph's memset and memcpy nodes failed: CUDA error {err} "
+            f"after {counts[0]} memsets and {counts[1]} memcpys")
+    return {"memset": counts[0], "memcpy": counts[1]}
 
 
 # One side stream per card for every capture of the process, as
@@ -97,14 +137,17 @@ class CudaGraph:
         index = device.index if device.index is not None else torch.cuda.current_device()
         if index not in _side_streams:
             _side_streams[index] = torch.cuda.Stream(index)
+        load_library("graph_fill")  # built here, not between capture and instantiation
         return torch.cuda.graph_pool_handle(), _side_streams[index]
 
     def __init__(self, shared):
         self.pool, self.stream = shared
-        # The cudaGraph_t is kept after capture so that its nodes can be
-        # counted; it is instantiated once, right after.
+        # The cudaGraph_t is kept after capture so that its memset nodes can
+        # be rewritten and its nodes counted; it is instantiated once, right
+        # after.
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
-        self.nodes = self.kernel_nodes = None
+        self.node_types: dict[str, int] | None = None  # as instantiated
+        self.rewritten: dict[str, int] | None = None  # nodes rewritten as kernels, by type
 
     def warm(self, fn: Callable[[], Any]) -> Any:
         current = torch.cuda.current_stream(self.stream.device)
@@ -118,7 +161,11 @@ class CudaGraph:
         with torch.cuda.graph(self.graph, pool=self.pool, stream=self.stream,
                               capture_error_mode="thread_local"):
             out = fn()
-        self.nodes, self.kernel_nodes = _graph_nodes(self.graph.raw_cuda_graph())
+        raw = self.graph.raw_cuda_graph()
+        self.rewritten = rewrite_graph(raw, self.stream.device)
+        self.node_types = graph_node_types(raw)
+        if self.node_types["memset"]:
+            raise RuntimeError(f"{self.node_types['memset']} memset nodes left after the rewrite")
         self.graph.instantiate()
         return out
 
@@ -227,7 +274,8 @@ class GraphCache:
         self.entries[key] = entry
         self.captures += 1
         captures += 1
-        log.info("Captured %s in %.2fs: %s nodes (%s kernels), attention launches %s",
-                 key[:3], entry.capture_s, getattr(graph, "nodes", None),
-                 getattr(graph, "kernel_nodes", None), entry.launches)
+        log.info("Captured %s in %.2fs: nodes by type %s, rewritten as kernels %s; "
+                 "attention launches %s", key[:3], entry.capture_s,
+                 getattr(graph, "node_types", None), getattr(graph, "rewritten", None),
+                 entry.launches)
         return entry, warm

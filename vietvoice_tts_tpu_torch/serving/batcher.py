@@ -147,8 +147,11 @@ class MicroBatcher:
         # batches dispatched BEYOND the one being fetched — dispatch of batch
         # k+1+depth waits until batch k's result has been fetched
         # (backpressure). Depth 1 queues the least work ahead of a newly
-        # arriving request and is the default; PERF.md holds the card's
-        # submit-to-first-future times at depth 1 and 2.
+        # arriving request and is the default. Depth 2 bought nothing on an
+        # H100 once no graph's launch blocked the host: 24 short jobs, three
+        # batches of eight, resolved their first, median and last futures
+        # 0.5%, 0.2% and 0.3% sooner than at depth 1 (``chip_smoke.py``
+        # phase 6, PERF.md): depth 1 already keeps the device busy.
         self._inflight: "queue.Queue[Optional[tuple]]" = queue.Queue(
             maxsize=max(1, pipeline_depth)
         )
