@@ -16,6 +16,16 @@ interpret mode: the rounding the kernels chose fits the tolerances that
 stand (float32 max-abs 1e-5, bfloat16 1e-2 on valid rows; float32 against the
 fused Pallas kernel 5e-3, as ``test_torch_kernels.py`` holds it).
 
+Head widths. A head of width d up to 256 runs at the tile width that holds
+it (:func:`tile_width`), its extra columns zero; a wider one in column
+blocks (:func:`wide_columns`), each of which computes the logits anew. Both
+restate the layout that ``csrc/attention_strided.cuh:launch_strided`` and
+``wide_block_width`` choose.
+The model does the same: it pads q, k and v with zero columns and walks the
+column blocks, and :func:`rope_pass_model` repeats the first pass of the
+fused kernel's two-pass widths (from 256): q and k rotated once, 8-column
+chunk c paired with chunk c + d/2, before the tiles.
+
 Also here: which variant serves which (dtype, head_dim), and that a change
 to the tile-step header rebuilds the libraries.
 """
@@ -28,11 +38,13 @@ import numpy as np
 import pytest
 import torch
 
+from vietvoice_tts_tpu.models.dit import _pallas_supports
 from vietvoice_tts_tpu.ops.attention import attention as jax_attention
 from vietvoice_tts_tpu.ops.pallas import flash_attention as jflash
 from vietvoice_tts_tpu.ops.pallas.fused_rope_attention import (
     fused_qkv_rope_attention as pallas_fused,
 )
+from vietvoice_tts_tpu_torch.models import dit as tdit
 from vietvoice_tts_tpu_torch.ops.attention import NEG_INF, attention
 from vietvoice_tts_tpu_torch.ops.kernels import build
 from vietvoice_tts_tpu_torch.ops.kernels import flash_attention as fa
@@ -42,6 +54,33 @@ from vietvoice_tts_tpu_torch.ops.rope import apply_rope, rope_tables
 BK = 64  # keys per tile (attention_mma.cuh)
 LOG2E = 1.4426950408889634
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+TILE_WIDTHS = (32, 64, 128, 192, 256)  # tile widths of the tile step
+WIDE_MAX_COLS = 256  # output columns of a block of the wide kernel, at most
+
+
+def tile_width(d):
+    """The tile width that serves head width d (<= 256): the smallest that
+    holds it (``launch_strided``)."""
+    return next(w for w in TILE_WIDTHS if w >= d)
+
+
+def wide_columns(d):
+    """(column blocks, block width) of the wide kernel at head width d: the
+    fewest blocks of at most 256 output columns, each the narrowest multiple
+    of 64 that covers d / blocks (``wide_block_width``)."""
+    blocks = -(-d // WIDE_MAX_COLS)
+    cols = -(-d // blocks)
+    return blocks, -(-cols // 64) * 64
+
+
+def column_blocks(d):
+    """[(first column, width)] of the output blocks the bfloat16 kernels run
+    at head width d: one tile up to 256, else the wide kernel's column
+    blocks."""
+    if d <= 256:
+        return [(0, tile_width(d))]
+    blocks, width = wide_columns(d)
+    return [(j * width, width) for j in range(blocks)]
 
 
 def mma_attention_model(q, k, v, mask=None):
@@ -49,40 +88,81 @@ def mma_attention_model(q, k, v, mask=None):
 
     For bfloat16 inputs every rounding of the kernel is repeated; for
     float32 inputs (which the kernels serve on the SIMT pipes) the weights
-    are not rounded, so the algorithm alone is on trial."""
+    are not rounded, so the algorithm alone is on trial. q and k are padded
+    with zero columns to the tile width (to whole 64-column atoms in column
+    blocks), v to the column blocks' end; each column block walks the keys
+    with logits of its own, and the columns past D are cut off."""
     b, heads, n, d = q.shape
+    blocks = column_blocks(d)
+    contraction = tile_width(d) if d <= 256 else -(-d // 64) * 64
+    covered = blocks[-1][0] + blocks[-1][1]
     scale_log2 = float(np.float32(LOG2E) / np.float32(math.sqrt(d)))
     bias = torch.zeros((b, n), dtype=torch.float32)
     if mask is not None:
         bias = bias.masked_fill(~mask, float(np.float32(NEG_INF) * np.float32(LOG2E)))
-    qf = q.float()
-    m = torch.full((b, heads, n), -math.inf)
-    l = torch.zeros((b, heads, n))
-    o = torch.zeros((b, heads, n, d))
-    for k0 in range(0, n, BK):
-        kt, vt = k[:, :, k0:k0 + BK].float(), v[:, :, k0:k0 + BK].float()
-        # bf16 × bf16 products are exact in float32, as on the tensor cores.
-        s = qf @ kt.transpose(-1, -2) * scale_log2 + bias[:, None, None, k0:k0 + BK]
-        m_new = torch.maximum(m, s.amax(-1))
-        alpha = torch.exp2(m - m_new)
-        p = torch.exp2(s - m_new[..., None])
-        l = l * alpha + p.sum(-1)  # from p before it is rounded
-        if q.dtype == torch.bfloat16:
-            p = p.bfloat16().float()
-        o = o * alpha[..., None] + p @ vt
-        m = m_new
-    return (o / l[..., None]).to(q.dtype)
+    qf = torch.nn.functional.pad(q.float(), (0, contraction - d))
+    kf = torch.nn.functional.pad(k.float(), (0, contraction - d))
+    vf = torch.nn.functional.pad(v.float(), (0, covered - d))
+    outs = []
+    for c0, width in blocks:
+        m = torch.full((b, heads, n), -math.inf)
+        l = torch.zeros((b, heads, n))
+        o = torch.zeros((b, heads, n, width))
+        for k0 in range(0, n, BK):
+            kt, vt = kf[:, :, k0:k0 + BK], vf[:, :, k0:k0 + BK, c0:c0 + width]
+            # bf16 × bf16 products are exact in float32, as on the tensor cores.
+            s = qf @ kt.transpose(-1, -2) * scale_log2 + bias[:, None, None, k0:k0 + BK]
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new[..., None])
+            l = l * alpha + p.sum(-1)  # from p before it is rounded
+            if q.dtype == torch.bfloat16:
+                p = p.bfloat16().float()
+            o = o * alpha[..., None] + p @ vt
+            m = m_new
+        outs.append(o / l[..., None])
+    return torch.cat(outs, dim=-1)[..., :d].to(q.dtype)
+
+
+def rope_pass_model(qkv, cos, sin, heads):
+    """The fused kernel's first pass at its two-pass widths: q and k of every
+    head rotated once into [B, H, N, D] each. Each 8-column chunk of the low
+    half is paired with the chunk d/2 further on: lo·cos − hi·sin and
+    hi·cos + lo·sin, every product and the sum rounded to float32, then once
+    to the input type."""
+    b, n, three_hd = qkv.shape
+    d = three_hd // (3 * heads)
+    half = d // 2
+    cos = cos.to(qkv.dtype).float()
+    sin = sin.to(qkv.dtype).float()
+    rotated = []
+    for t in qkv.chunk(3, dim=-1)[:2]:
+        x = t.reshape(b, n, heads, d).transpose(1, 2).float()
+        chunks = []
+        for c in range(0, half, 8):
+            lo, hi = x[..., c:c + 8], x[..., half + c:half + c + 8]
+            cl, ch = cos[:, c:c + 8], cos[:, half + c:half + c + 8]
+            sl, sh = sin[:, c:c + 8], sin[:, half + c:half + c + 8]
+            chunks.append((lo * cl + (-hi) * sl, hi * ch + lo * sh))
+        out = torch.cat([lo for lo, _ in chunks] + [hi for _, hi in chunks], dim=-1)
+        rotated.append(out.to(qkv.dtype))
+    return rotated
 
 
 def mma_fused_model(qkv, cos, sin, mask, heads):
     """Packed-QKV RoPE attention with the tensor-core kernel's arithmetic:
-    RoPE in float32 rounded once, 1/sqrt(D) on the logits, then the tiles."""
+    RoPE in float32 rounded once (from 256 as the first pass does it), 1/sqrt(D)
+    on the logits, then the tiles."""
     b, n, three_hd = qkv.shape
     d = three_hd // (3 * heads)
     q, k, v = (t.reshape(b, n, heads, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
-    cos, sin = cos.to(qkv.dtype).float(), sin.to(qkv.dtype).float()
-    q, k = (apply_rope(t.float(), cos, sin).to(qkv.dtype) for t in (q, k))
-    return mma_attention_model(q, k, v, mask).transpose(1, 2).reshape(b, n, heads * d)
+    if d >= fra.SCRATCH_FROM:
+        q, k = rope_pass_model(qkv, cos, sin, heads)
+    else:
+        cos, sin = cos.to(qkv.dtype).float(), sin.to(qkv.dtype).float()
+        q, k = (apply_rope(t.float(), cos, sin).to(qkv.dtype) for t in (q, k))
+    out = mma_attention_model(q, k, v, mask)
+    return out.transpose(1, 2).reshape(b, n, heads * d)
 
 
 def _qkv(b, heads, n, d, valid, dtype, seed):
@@ -116,11 +196,13 @@ def _np(t):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 8, 48, 72, 96, 136, 200, 256, 264, 320, 512])
 @pytest.mark.parametrize("n", [40, 64, 200])
 def test_model_matches_plain_attention(n, d, dtype):
     """One partial tile, one full tile, three full tiles and a ragged one;
-    the second batch row has padded keys."""
+    the second batch row has padded keys. Head widths at a tile width,
+    between tile widths (zero columns up to the next) and above 256 (column
+    blocks of 192 or 256, the logits once per block)."""
     valid = [n, n - n // 3]
     _, (q, k, v, mask) = _qkv(2, 3, n, d, valid, dtype, seed=n + d)
     out = mma_attention_model(q, k, v, mask)
@@ -141,6 +223,33 @@ def test_model_takes_no_mask_and_a_fully_padded_later_tile(dtype):
     out = mma_attention_model(q, k, v, mask)
     assert torch.isfinite(out).all()
     assert _valid_err(_np(out), _np(attention(q, k, v, mask)), [50, 64], 2) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("d,want", [
+    (8, [(0, 32)]), (72, [(0, 128)]), (96, [(0, 128)]), (200, [(0, 256)]),
+    (256, [(0, 256)]), (264, [(0, 192), (192, 192)]), (384, [(0, 192), (192, 192)]),
+    (512, [(0, 256), (256, 256)]), (1024, [(0, 256), (256, 256), (512, 256), (768, 256)]),
+])
+def test_column_blocks_cover_the_head(d, want):
+    """csrc/attention_strided.cuh:wide_block_width restated: the fewest blocks
+    of at most 256 columns, each a multiple of 64 that covers d / blocks."""
+    assert column_blocks(d) == want
+    assert column_blocks(d)[-1][0] < d <= sum(w for _, w in column_blocks(d))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [256, 512])
+def test_rope_pass_pairs_chunks_as_the_plain_version_rotates(d, dtype):
+    """The first pass's chunk pairing (c with c + d/2, 8 columns at a time)
+    gives the plain version's rotated q and k bit for bit."""
+    heads, n = 2, 40
+    qkv, cos, sin, _ = (torch.from_numpy(a) for a in _packed(2, n, heads, d, [n, n], seed=d))
+    qkv = qkv.to(getattr(torch, dtype))
+    q, k = rope_pass_model(qkv, cos, sin, heads)
+    c, s_ = cos.to(qkv.dtype).float(), sin.to(qkv.dtype).float()
+    for got, t in zip((q, k), qkv.chunk(3, dim=-1)[:2]):
+        x = t.reshape(2, n, heads, d).transpose(1, 2)
+        assert torch.equal(got, apply_rope(x.float(), c, s_).to(qkv.dtype))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -184,7 +293,11 @@ class _InterpretPallas:
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,heads,n,d", [(2, 4, 128, 32), (1, 2, 96, 64)])
+@pytest.mark.parametrize("b,heads,n,d", [
+    (2, 4, 128, 32), (1, 2, 96, 64),
+    # Widths served since the padded tiles and the wide kernel.
+    (1, 2, 96, 48), (1, 2, 128, 72), (1, 2, 96, 96), (1, 1, 64, 256), (1, 1, 64, 320),
+])
 def test_model_matches_pallas_flash_attention(monkeypatch, b, heads, n, d, dtype):
     monkeypatch.setattr(jflash, "pl", _InterpretPallas(jflash.pl))
     valid = [n - 30, n][:b]
@@ -197,10 +310,12 @@ def test_model_matches_pallas_flash_attention(monkeypatch, b, heads, n, d, dtype
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 5e-3), ("bfloat16", 1e-2)])
 @pytest.mark.parametrize("n", [128, 768])
-@pytest.mark.parametrize("heads,d", [(2, 128), (4, 64)])
+@pytest.mark.parametrize("heads,d", [(2, 128), (4, 64), (2, 256), (1, 384), (1, 512)])
 def test_fused_model_matches_pallas_fused_kernel(heads, d, n, dtype, tol):
     """Both head layouts of the TPU kernel at a bucket where block_q divides
-    (128) and where it must shrink (768)."""
+    (128) and where it must shrink (768). From 256 the model runs the
+    rotation pass, then the tile step at width 256, or two column blocks
+    (384: 192 each; 512: 256 each)."""
     valid = [n - 40, n]
     qkv, cos, sin, mask = _packed(2, n, heads, d, valid)
     ref = pallas_fused(jnp.asarray(qkv, getattr(jnp, dtype)), jnp.asarray(cos),
@@ -213,10 +328,15 @@ def test_fused_model_matches_pallas_fused_kernel(heads, d, n, dtype, tol):
 
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 32, "wgmma"), (torch.bfloat16, 64, "wgmma"),
-    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 96, "simt"),
-    (torch.bfloat16, 256, "simt"), (torch.float32, 32, "simt"),
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 96, "wgmma"),
+    (torch.bfloat16, 256, "wgmma"), (torch.float32, 32, "simt"),
     (torch.float32, 64, "simt"), (torch.float32, 96, "simt"),
     (torch.float32, 128, "simt"), (torch.float32, 256, "simt"),
+    # Refused before the padded tiles and the wide kernel; served since.
+    (torch.bfloat16, 48, "wgmma"), (torch.bfloat16, 72, "wgmma"),
+    (torch.bfloat16, 320, "wgmma"), (torch.bfloat16, 512, "wgmma"),
+    (torch.bfloat16, 8, "wgmma"), (torch.bfloat16, 1024, "wgmma"),
+    (torch.float32, 72, "simt"), (torch.float32, 512, "simt"),
 ])
 def test_flash_kernel_variant(dtype, d, want):
     assert fa.supports_shape(5, d, 437)
@@ -226,19 +346,60 @@ def test_flash_kernel_variant(dtype, d, want):
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+    # The JAX kernel's D % 128 == 0 widths, served in two passes since.
+    (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 384, "wgmma"),
+    (torch.bfloat16, 512, "wgmma"), (torch.bfloat16, 1024, "wgmma"),
+    (torch.float32, 256, "simt"), (torch.float32, 512, "simt"),
 ])
 def test_fused_kernel_variant(dtype, d, want):
     assert fra.supports_shape(8, d, 437)
     assert fra.kernel_variant(dtype, d) == want
 
 
-@pytest.mark.parametrize("module,d", [(fa, 48), (fa, 512), (fra, 32), (fra, 96), (fra, 256)])
+@pytest.mark.parametrize("module,d", [
+    (fra, 32), (fra, 96),
+    # Rows of 16 bytes and at most 1024 columns: 36 and 1032 have no kernel.
+    (fa, 36), (fa, 1032), (fa, 4), (fa, 1040), (fra, 36), (fra, 1032), (fra, 1152), (fra, 320),
+])
 def test_kernel_variant_refuses_what_the_kernel_does_not_take(module, d):
     assert not module.supports_shape(4, d, 128)
     with pytest.raises(ValueError, match="head_dim"):
         module.kernel_variant(torch.bfloat16, d)
     with pytest.raises(TypeError):
         module.kernel_variant(torch.float16, 64)
+
+
+@pytest.mark.parametrize("heads,d,n", [
+    (8, 64, 384), (3, 64, 384), (16, 64, 448), (8, 128, 448), (4, 256, 448), (3, 384, 448),
+    (2, 512, 448), (1, 1024, 256), (16, 72, 448), (12, 96, 448), (32, 32, 448),
+    (4, 320, 448), (2, 1152, 448),
+])
+def test_fused_kernel_takes_what_the_jax_kernel_takes(heads, d, n):
+    """Wherever the JAX fused kernel's supports_shape holds up to head_dim
+    1024, the port's does (the port also takes odd heads at 64 and frame
+    counts that are no multiple of 8)."""
+    if _pallas_supports(heads, d, n) and d <= 1024:
+        assert fra.supports_shape(heads, d, n)
+    if not fra.supports_shape(heads, d, n):
+        assert d > 1024 or not _pallas_supports(heads, d, n)
+
+
+@pytest.mark.parametrize("dim,heads,want", [
+    (1024, 4, "fused_rope_attention"),  # head_dim 256: JAX's fused kernel too
+    (1152, 3, "fused_rope_attention"),  # 384
+    (1024, 2, "fused_rope_attention"),  # 512
+    (1152, 16, "flash_attention"),  # 72, DiT-XL/2's heads: JAX's XLA route
+    (1152, 12, "flash_attention"),  # 96
+    (1024, 8, "fused_rope_attention"),  # the default model
+])
+def test_dit_picks_the_route_jax_picks(dim, heads, want):
+    """DiT.attention_kernel names kernel 1 exactly where JAX's DiT runs its
+    fused kernel (``_pallas_supports``) at the serving buckets."""
+    dit = tdit.DiT.__new__(tdit.DiT)
+    dit.cfg = tdit.DiTConfig(dim=dim, heads=heads, use_kernels=True)
+    for n in (384, 448, 2048):
+        assert dit.attention_kernel(n) == want
+        assert (want == "fused_rope_attention") == _pallas_supports(heads, dim // heads, n)
 
 
 def test_bf16_operands_with_unaligned_rows_are_refused_before_any_launch():

@@ -115,6 +115,8 @@ def _c_variant(module, dtype, head_dim):
 @pytest.mark.parametrize("module,head_dim", [
     (fa, 32), (fa, 64), (fa, 96), (fa, 128), (fa, 256), (fa, 48),
     (fra, 64), (fra, 128), (fra, 96),
+    (fa, 72), (fa, 320), (fa, 1024), (fa, 36), (fa, 1032),
+    (fra, 256), (fra, 384), (fra, 512), (fra, 320), (fra, 1152),
 ])
 def test_cuda_wrapper_and_library_choose_the_same_variant(cuda_device, module, head_dim, dtype):
     if module.supports_shape(2, head_dim, 64):
@@ -131,6 +133,8 @@ def test_cuda_bf16_paths_are_on_the_tensor_cores(cuda_device):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("b,n,heads,head_dim", [(2, 512, 8, 128), (2, 512, 16, 64),
+                                                (2, 200, 2, 256), (2, 437, 3, 384),
+                                                (2, 130, 1, 1024),
                                                 (2, 437, 8, 128)])
 def test_cuda_kernel_matches_plain(cuda_device, dtype, tol, b, n, heads, head_dim):
     valid = [n - 77, n]
@@ -191,19 +195,19 @@ def test_cuda_kernels_refuse_autograd_and_run_under_no_grad(cuda_device):
 
 def test_cuda_wrapper_and_dit_raise_on_unsupported_head_dim(cuda_device):
     """head_dim 96 is not the fused kernel's: its wrapper raises on the card.
-    head_dim 48 has no kernel at all: the flash_attention wrapper raises, and
-    so does a DiT built with use_kernels; nothing falls back to a plain
-    version."""
+    head_dim 36 (rows of 72 bytes, no multiple of 16) has no kernel at all:
+    the flash_attention wrapper raises, and so does a DiT built with
+    use_kernels; nothing falls back to a plain version."""
     qkv, cos, sin, mask = _attention_inputs(1, 64, 2, 96, [64], cuda_device,
                                             torch.float32)
     before = fra.launches, fa.launches
     with pytest.raises(ValueError, match="head_dim"):
         fra.fused_qkv_rope_attention(qkv, cos, sin, mask, 2)
-    q = torch.zeros((1, 2, 64, 48), device=cuda_device)
+    q = torch.zeros((1, 2, 64, 36), device=cuda_device)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(q, q, q, None)
 
-    dims = dict(dim=96, depth=1, heads=2, ff_mult=2, n_mels=16, text_dim=32,
+    dims = dict(dim=72, depth=1, heads=2, ff_mult=2, n_mels=16, text_dim=32,
                 text_conv_layers=1, vocab_size=40)
     tree = tdit.init_dit_params(np.random.default_rng(0), tdit.DiTConfig(**dims))
     dit = tdit.DiT(tdit.DiTConfig(**dims, compute_dtype=torch.float32, use_kernels=True))
@@ -219,10 +223,13 @@ def test_cuda_wrapper_and_dit_raise_on_unsupported_head_dim(cuda_device):
     assert (fra.launches, fa.launches) == before
 
 
-def test_cuda_dit_forward_runs_kernel_in_every_block(cuda_device):
+@pytest.mark.parametrize("dim,heads", [(256, 2), (512, 2), (768, 2)])
+def test_cuda_dit_forward_runs_kernel_in_every_block(cuda_device, dim, heads):
     """The DiT dispatches to the kernel once per block on CUDA tensors with
-    use_kernels, and its output matches the plain path's (gates opened)."""
-    dims = dict(dim=256, depth=3, heads=2, ff_mult=2, n_mels=16, text_dim=32,
+    use_kernels (head_dim 128; 256 and 384 in the kernel's two passes, where
+    JAX's DiT runs its fused kernel too), and its output matches the plain
+    path's (gates opened)."""
+    dims = dict(dim=dim, depth=3, heads=heads, ff_mult=2, n_mels=16, text_dim=32,
                 text_conv_layers=1, vocab_size=40)
     rng = np.random.default_rng(0)
     tree = tdit.init_dit_params(rng, tdit.DiTConfig(**dims))
@@ -275,11 +282,13 @@ def _qkv_inputs(b, heads, n, d, valid, device, dtype, packed, seed=11):
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("b,heads,n,d", [(2, 4, 437, 32), (2, 3, 300, 64), (2, 3, 200, 96),
+                                         (2, 2, 437, 8), (2, 3, 200, 72), (2, 2, 130, 200),
+                                         (2, 2, 200, 264), (2, 2, 437, 520), (2, 1, 130, 1024),
                                          (2, 2, 437, 128), (2, 2, 200, 256)])
 def test_cuda_flash_kernel_matches_plain(cuda_device, dtype, tol, packed, b, heads, n, d):
     valid = [n - 77, n]
     q, k, v, mask = _qkv_inputs(b, heads, n, d, valid, cuda_device, dtype, packed)
-    want = "wgmma" if dtype == torch.bfloat16 and d in (32, 64, 128) else "simt"
+    want = "wgmma" if dtype == torch.bfloat16 else "simt"
     assert _c_variant(fa, dtype, d) == fa.kernel_variant(dtype, d) == want
     before = fa.launches
     out = fa.flash_attention(q, k, v, mask)
@@ -309,7 +318,7 @@ def test_cuda_flash_kernel_without_mask_and_with_a_fully_padded_row(cuda_device)
     assert (out[0] - ref[0]).abs().max().item() <= 1e-4
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 72, 256, 320])
 def test_cuda_wgmma_flash_kernel_edge_tiles(cuda_device, d):
     """The tensor-core variant on what its tiles make hard: later key tiles
     that are padded throughout (their weights are exactly 0, no NaN), a batch
@@ -342,15 +351,41 @@ def test_cuda_fused_kernel_with_padded_later_tiles(cuda_device):
         assert (out[row, :nv].float() - ref[row, :nv].float()).abs().max().item() <= 1e-2
 
 
-def test_cuda_bf16_head_dim_96_still_runs_the_simt_variant(cuda_device):
+def test_cuda_bf16_head_dim_96_runs_the_padded_wgmma_tile(cuda_device):
+    """bf16 at head_dim 96 ran on the SIMT pipes until its padded tile
+    (width 128) moved it to the tensor cores; it still matches the plain
+    version."""
     q, k, v, mask = _qkv_inputs(2, 3, 200, 96, [150, 200], cuda_device, torch.bfloat16, True)
-    assert _c_variant(fa, torch.bfloat16, 96) == "simt"
+    assert _c_variant(fa, torch.bfloat16, 96) == "wgmma"
     before = fa.launches
     out = fa.flash_attention(q, k, v, mask)
     assert fa.launches == before + 1
     ref = attention(q, k, v, mask)
     for row, nv in enumerate((150, 200)):
         assert (out[row, :, :nv].float() - ref[row, :, :nv].float()).abs().max().item() <= 1e-2
+
+
+@pytest.mark.parametrize("d", [32, 64, 72, 256])
+def test_cuda_f32_column_blocked_kernel_matches_plain(cuda_device, d):
+    """The float32 column-blocked kernel, through its own entry point, at
+    widths with a float32 kernel of their own and without: the plain
+    version's result within 1e-4."""
+    b, heads, n, valid = 2, 2, 200, [123, 200]
+    q, k, v, mask = _qkv_inputs(b, heads, n, d, valid, cuda_device, torch.float32, True)
+    fn = load_library(fa.KERNEL).vv_flash_attention_f32_blocked
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    out = torch.empty((b, n, heads, d), dtype=torch.float32, device=cuda_device)
+    strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.view(torch.uint8).data_ptr(),
+             out.data_ptr(), strides, b, heads, n, d,
+             torch.cuda.current_stream(cuda_device).cuda_stream)
+    assert err == 0
+    ref = attention(q, k, v, mask)
+    got = out.transpose(1, 2)
+    for row, nv in enumerate(valid):
+        assert (got[row, :, :nv] - ref[row, :, :nv]).abs().max().item() <= 1e-4
 
 
 def test_cuda_wgmma_variant_refuses_unaligned_rows(cuda_device):
@@ -397,9 +432,9 @@ def _gated_dit(dims, device, use_kernels, seed=0):
     return dit.to(device).eval()
 
 
-@pytest.mark.parametrize("dim,heads", [(64, 2), (288, 3), (512, 2)])
+@pytest.mark.parametrize("dim,heads", [(64, 2), (288, 3), (640, 2), (144, 2)])
 def test_cuda_dit_split_heads_route_runs_flash_kernel(cuda_device, dim, heads):
-    """head_dim 32, 96 and 256: the DiT takes the split-heads route, one
+    """head_dim 32, 96, 320 and 72: the DiT takes the split-heads route, one
     flash_attention launch per block and none of the fused kernel, and
     agrees with the plain path (gates opened)."""
     dims = dict(dim=dim, depth=3, heads=heads, ff_mult=2, n_mels=16, text_dim=32,

@@ -109,18 +109,23 @@ def test_wrapper_on_cpu_runs_plain_version_without_counting():
     assert torch.equal(fa.flash_attention(q, k, v, mask.to(torch.uint8)), ref)
     assert fa.flash_attention(q, k, v).shape == q.shape
     # Head dims without a kernel run the plain version on CPU tensors too.
-    assert fa.flash_attention(q[..., :40], k[..., :40], v[..., :40], mask).shape == (2, 2, 48, 40)
+    assert fa.flash_attention(q[..., :36], k[..., :36], v[..., :36], mask).shape == (2, 2, 48, 36)
     assert fa.launches == before
 
 
 def test_supports_shape():
     for d in (32, 64, 96, 128, 256):
         assert fa.supports_shape(5, d, 437)  # any head and frame count
-    for d in (16, 48, 80, 192, 512):
+    # Every multiple of 8 up to 1024 since the padded tiles and the wide
+    # kernel (16, 48, 80, 192 and 512 were refused before).
+    for d in (8, 16, 48, 72, 80, 192, 320, 512, 1024):
+        assert fa.supports_shape(4, d, 128)
+    for d in (4, 36, 100, 1032, 1040):
         assert not fa.supports_shape(4, d, 128)
     assert not fa.supports_shape(4, 32, 0)
-    # Between them the two kernels take every head_dim in HEAD_DIMS.
-    assert set(fra.HEAD_DIMS) <= set(fa.HEAD_DIMS)
+    # Every head_dim the fused kernel takes, the split-heads route's takes too.
+    for d in range(8, 1025, 8):
+        assert not fra.supports_shape(4, d, 128) or fa.supports_shape(4, d, 128)
 
 
 @pytest.mark.parametrize(
@@ -148,7 +153,7 @@ def test_tensors_for_the_kernel_are_held_to_its_shapes():
     checked before any launch; meta tensors reach those checks without a
     card (test_torch_cuda.py checks them on one)."""
     before = fa.launches
-    q = torch.zeros((1, 2, 32, 48), device="meta")
+    q = torch.zeros((1, 2, 32, 36), device="meta")
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(q, q, q, None)
     with pytest.raises(ValueError, match="head_dim"):
@@ -209,6 +214,37 @@ def test_dit_forward_at_heads_the_fused_kernel_rejects(dim, heads, use_kernels):
     assert np.abs(ref).max() > 0.1
     np.testing.assert_allclose(out, ref, atol=1e-4, rtol=0)
     assert (out[0, n - 11:] == 0).all()
+
+
+@pytest.mark.parametrize("dim,heads,route", [
+    (256, 1, "fused_rope_attention"),  # head_dim 256: the fused route, as in JAX
+    (144, 2, "flash_attention"),  # head_dim 72: split heads, JAX's XLA route
+])
+def test_dit_forward_at_the_widths_served_since_the_wide_kernels(dim, heads, route):
+    """Head widths the card serves since kernel 1 took JAX's D % 128 == 0
+    widths and kernel 2 every multiple of 8: the port's DiT (use_kernels, so
+    on CPU tensors the wrappers' plain versions) against the JAX DiT."""
+    params, jcfg, dit = _dit_pair(dim, heads, True)
+    assert dit.attention_kernel(48) == route
+    assert jdit._pallas_supports(heads, dim // heads, 48) == (route == "fused_rope_attention")
+    rng = np.random.default_rng(2)
+    b, n = 2, 48
+    x, cond = (rng.standard_normal((b, n, 16)).astype(np.float32) for _ in range(2))
+    ids = rng.integers(-1, 40, (b, n)).astype(np.int32)
+    mask = np.arange(n)[None, :] < np.array([n - 11, n])[:, None]
+    t = np.array([0.2, 0.8], np.float32)
+    temb = jdit.dit_text_embed(params, jcfg, jnp.asarray(ids))
+    ref = np.asarray(jdit.dit_forward_embedded(
+        params, jcfg, jnp.asarray(x), jnp.asarray(cond), temb, jnp.asarray(t),
+        jnp.asarray(mask),
+    ))
+    with torch.no_grad():
+        out = dit.forward_embedded(
+            torch.from_numpy(x), torch.from_numpy(cond), torch.from_numpy(np.array(temb)),
+            torch.from_numpy(t), torch.from_numpy(mask),
+        ).numpy()
+    assert np.abs(ref).max() > 0.1
+    np.testing.assert_allclose(out, ref, atol=1e-4, rtol=0)
 
 
 def test_route_is_picked_from_the_head_shape():

@@ -103,7 +103,11 @@ def test_supports_shape():
     assert fra.supports_shape(16, 64, 512)  # converted F5 shape
     assert fra.supports_shape(3, 64, 500)  # any head count, any frame count
     assert not fra.supports_shape(8, 96, 512)
-    assert not fra.supports_shape(2, 256, 512)
+    # Served since the two-pass widths (JAX's D % 128 == 0 up to 1024).
+    assert fra.supports_shape(2, 256, 512)
+    assert fra.supports_shape(3, 384, 437)
+    assert not fra.supports_shape(2, 320, 512)
+    assert not fra.supports_shape(1, 1152, 512)
     assert not fra.supports_shape(8, 128, 0)
 
 

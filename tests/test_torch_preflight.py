@@ -198,7 +198,7 @@ class TestHostileVariants:
 
     @pytest.mark.parametrize("dim, heads, kernel", [
         (64, 2, 2),  # head_dim 32: kernel 2 on the split-heads route
-        (96, 2, None),  # head_dim 48: no CUDA kernel takes it
+        (72, 2, None),  # head_dim 36 (was 48 until kernel 2 took it): no kernel
     ])
     def test_head_shape_decides_the_route(self, tmp_path, dim, heads, kernel):
         """The route advice names the kernel that serves the probed head
@@ -217,7 +217,7 @@ class TestHostileVariants:
         assert arch["attention_route"]["kernel"] == kernel
         if kernel is None:
             assert not report["ok"]
-            assert any("no CUDA attention kernel takes head_dim 48" in b
+            assert any("no CUDA attention kernel takes head_dim 36" in b
                        for b in report["blockers"])
             assert report["topology"]["transformer"]["ok"]  # the graphs are fine
         else:
@@ -228,11 +228,18 @@ class TestHostileVariants:
 @pytest.mark.parametrize("heads, head_dim, kernel", [
     (16, 64, 1),  # the F5 head shape
     (8, 128, 1),  # the default model
-    (4, 256, 2),
+    (4, 256, 1),  # kernel 2 until kernel 1 took JAX's D % 128 == 0 widths
     (32, 32, 2),
     (2, 96, 2),
-    (16, 48, None),
-    (4, 16, None),
+    (16, 48, 2),  # no kernel until kernel 2 took every multiple of 8
+    (4, 16, 2),  # the same
+    (3, 384, 1),
+    (2, 512, 1),
+    (16, 72, 2),  # DiT-XL/2's heads
+    (4, 320, 2),
+    (16, 36, None),
+    (1, 1032, None),
+    (1, 1152, None),
 ])
 def test_attention_route(heads, head_dim, kernel):
     """The route is the DiT's own choice (``DiT._attend``): kernel 1 where

@@ -1,6 +1,8 @@
 // The tensor-core tile step shared by the bfloat16 paths of the package's
 // attention kernels (flash_attention.cu, fused_rope_attention.cu). The
-// float32 paths keep attention_tile.cuh.
+// float32 paths keep attention_tile.cuh. attention_strided.cuh runs it on
+// strided q, k, v, and holds the kernel for head widths above 256, built
+// from the pieces here.
 //
 // One warpgroup (128 threads, four warps) owns 64 query rows and walks the
 // key axis in tiles of BK = 64 keys. Both matrix products of a tile run on
@@ -24,7 +26,16 @@
 //                    tile [BK, D] as it was loaded: its contraction axis
 //                    (keys) is the row axis and D is contiguous ("MN-major"),
 //                    which the instruction's trans-b bit reads in place.
-//                    BK / 16 instructions m64n{D}k16.
+//                    BK / 16 instructions m64n{D}k16, in pieces of at most
+//                    128 output columns (D = 192: 128 + 64; 256: 128 + 128).
+//
+// Head widths. D is the tile's compile-time width: 32, 64, 128, 192 or 256.
+// A head of true width d <= D (any multiple of 8) is served by the smallest
+// such D: columns d..D of the Q, K and V tiles are zero-filled by the copies
+// (as rows past the sequence end are), so they add nothing to Q . K^T, and
+// P . V's extra output columns are computed on zeros and never stored. A
+// width that is not a tile width costs the padding's flops: d 72 runs both
+// products at 128, 1.78x its own.
 //
 // Rounding. p is rounded to bfloat16 for P . V (the tensor cores take no
 // float32 operand at this rate), as the TPU kernels round it. The row sum l
@@ -198,36 +209,47 @@ struct TileLayout {
 };
 
 // A thread's part in copying [64, D] tiles from global memory with NT
-// threads: the same chunk column of rows row, row + ROWS_PER_PASS, ... The
-// passes are a multiple of eight rows apart, so the swizzle term of the
-// offset is the same in every pass and all addressing is done once.
+// threads. A sweep covers SWEEP columns of all 64 rows: the whole row where
+// the NT threads divide its 16-byte chunks, else one atom at a time (D =
+// 192). In a sweep a thread copies the same chunk column of rows row,
+// row + ROWS_PER_PASS, ... The passes are a multiple of eight rows apart, so
+// the swizzle term of the offset is the same in every pass and all
+// addressing is done once.
 template <int D, int NT>
 struct TileCopier {
   using L = TileLayout<D>;
-  static constexpr int ROWS_PER_PASS = NT / L::ROW_CHUNKS;
+  static constexpr int SWEEP = NT % L::ROW_CHUNKS == 0 ? D : L::ATOM_ELEMS;
+  static constexpr int SWEEPS = D / SWEEP;
+  static constexpr int SWEEP_CHUNKS = SWEEP / 8;
+  static constexpr uint32_t SWEEP_BYTES = (SWEEP / L::ATOM_ELEMS) * L::ATOM_COLUMN_BYTES;
+  static constexpr int ROWS_PER_PASS = NT / SWEEP_CHUNKS;
   static constexpr int PASSES = TILE_ROWS / ROWS_PER_PASS;
-  static_assert(NT % L::ROW_CHUNKS == 0 && ROWS_PER_PASS % 8 == 0 &&
+  static_assert(NT % SWEEP_CHUNKS == 0 && ROWS_PER_PASS % 8 == 0 &&
                 TILE_ROWS % ROWS_PER_PASS == 0, "whole passes of whole row groups");
   int row;          // this thread's row in the first pass
-  int col;          // first column of its chunk
+  int col;          // first column of its chunk in the first sweep
   uint32_t offset;  // of that chunk in the tile
   // t: this thread's index among the NT that copy.
   __device__ __forceinline__ explicit TileCopier(int t)
-      : row(t / L::ROW_CHUNKS),
-        col(8 * (t % L::ROW_CHUNKS)),
-        offset(L::offset(t / L::ROW_CHUNKS, t % L::ROW_CHUNKS)) {}
+      : row(t / SWEEP_CHUNKS),
+        col(8 * (t % SWEEP_CHUNKS)),
+        offset(L::offset(t / SWEEP_CHUNKS, t % SWEEP_CHUNKS)) {}
 
   // Starts the copy of rows r0 .. r0 + 63 of a head's operand (row i at
-  // src + i * pitch, in elements) into the tile at dst; rows >= n are
-  // zero-filled.
+  // src + i * pitch, in elements) into the tile at dst; rows >= n and
+  // columns >= cols (a multiple of 8) are zero-filled.
   __device__ __forceinline__ void copy(uint32_t dst, const __nv_bfloat16* src,
-                                       long long pitch, int r0, int n) const {
+                                       long long pitch, int r0, int n, int cols = D) const {
     const __nv_bfloat16* from = src + (r0 + row) * pitch + col;
 #pragma unroll
-    for (int i = 0; i < PASSES; ++i) {
-      const bool valid = r0 + row + i * ROWS_PER_PASS < n;
-      cp_async_16(dst + offset + i * ROWS_PER_PASS * L::ATOM_BYTES,
-                  valid ? from + i * ROWS_PER_PASS * pitch : src, valid);
+    for (int w = 0; w < SWEEPS; ++w) {
+      const bool col_valid = col + w * SWEEP < cols;
+#pragma unroll
+      for (int i = 0; i < PASSES; ++i) {
+        const bool valid = col_valid && r0 + row + i * ROWS_PER_PASS < n;
+        cp_async_16(dst + offset + w * SWEEP_BYTES + i * ROWS_PER_PASS * L::ATOM_BYTES,
+                    valid ? from + w * SWEEP + i * ROWS_PER_PASS * pitch : src, valid);
+      }
     }
   }
 };
@@ -386,10 +408,21 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   if constexpr (N == 128) wgmma_rs_n128(d, a, desc_b);
 }
 
+// Output columns [FIRST, FIRST + N) of an accumulator in the layout of a
+// wider one: a thread's part of them is a contiguous run of N / 2 floats.
+template <int FIRST, int N, int M>
+__device__ __forceinline__ float (&columns(float (&o)[M]))[N / 2] {
+  static_assert(FIRST % 8 == 0 && FIRST / 2 + N / 2 <= M, "columns inside the accumulator");
+  return *reinterpret_cast<float(*)[N / 2]>(&o[FIRST / 2]);
+}
+
 // ---- the two products -----------------------------------------------------
 
 // s = Q . K^T for this warpgroup's 64 rows (Q tile at q_addr) and
 // the BK keys of the tile at k_addr. Starts the wgmma, commits and waits.
+// Every slice is issued, the zero columns past a head's width too: a wgmma
+// under a run-time condition makes ptxas fence the registers of every
+// product before it (warning C7519).
 template <int D>
 __device__ __forceinline__ void qk_product(uint32_t q_addr, uint32_t k_addr,
                                            float (&s)[BK / 2]) {
@@ -427,7 +460,16 @@ __device__ __forceinline__ void pv_product(uint32_t (&p)[BK / 16][4], uint32_t v
   for (int kk = 0; kk < BK / 16; ++kk) fence_operands(p[kk]);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs<D>(o, p[kk], mn_major_desc<D>(v_addr, kk));
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    if constexpr (D <= 128) {
+      wgmma_rs<D>(o, p[kk], mn_major_desc<D>(v_addr, kk));
+    } else {
+      // Columns 0..127 (atoms 0 and 1), then the rest from atom 2 on.
+      wgmma_rs<128>(columns<0, 128>(o), p[kk], mn_major_desc<D>(v_addr, kk));
+      wgmma_rs<D - 128>(columns<128, D - 128>(o), p[kk],
+                        mn_major_desc<D>(v_addr + 2 * TileLayout<D>::ATOM_COLUMN_BYTES, kk));
+    }
+  }
   wgmma_commit();
 }
 
@@ -449,15 +491,15 @@ struct RowState {
 };
 
 // Turns the raw products in s into weights p = exp2(logit - m_new) in place,
-// updates m and l and rescales o. bias is the tile's BK key biases in shared
-// memory (log2 domain). No wgmma may be in flight on st.o.
-template <int D>
-__device__ __forceinline__ void softmax_step(float (&s)[BK / 2], const float* bias,
-                                             float scale_log2, RowState<D>& st) {
-  const int quad = threadIdx.x & 3;
+// updates m and l and rescales o. bias_pair(j) gives the key biases (log2
+// domain) of this thread's two columns 8 j + 2 (lane % 4) and the next. No
+// wgmma may be in flight on st.o.
+template <int D, typename BiasPair>
+__device__ __forceinline__ void softmax_step_with(float (&s)[BK / 2], BiasPair bias_pair,
+                                                  float scale_log2, RowState<D>& st) {
 #pragma unroll
   for (int j = 0; j < BK / 8; ++j) {
-    const float2 bj = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * quad);
+    const float2 bj = bias_pair(j);
     s[4 * j + 0] = fmaf(s[4 * j + 0], scale_log2, bj.x);
     s[4 * j + 1] = fmaf(s[4 * j + 1], scale_log2, bj.y);
     s[4 * j + 2] = fmaf(s[4 * j + 2], scale_log2, bj.x);
@@ -492,6 +534,16 @@ __device__ __forceinline__ void softmax_step(float (&s)[BK / 2], const float* bi
   }
 }
 
+// The same with the tile's BK key biases in shared memory at bias.
+template <int D>
+__device__ __forceinline__ void softmax_step(float (&s)[BK / 2], const float* bias,
+                                             float scale_log2, RowState<D>& st) {
+  const int quad = threadIdx.x & 3;
+  softmax_step_with<D>(
+      s, [&](int j) { return *reinterpret_cast<const float2*>(bias + 8 * j + 2 * quad); },
+      scale_log2, st);
+}
+
 // One staged key tile: both products around the softmax step. The caller
 // has published the tile (fence_proxy_async, barrier) and does not overwrite
 // it before its next barrier.
@@ -511,10 +563,11 @@ __device__ __forceinline__ void tile_step(uint32_t q_addr, uint32_t k_addr, uint
 
 // Normalizes and stores a warpgroup's rows: row0 is the sequence row of the
 // warpgroup's first query, dst the address of that row's first output column
-// and pitch the distance between rows, in elements. Rows >= n are not stored.
+// and pitch the distance between rows, in elements. Rows >= n and columns
+// >= cols (a multiple of 8) are not stored.
 template <int D>
 __device__ __forceinline__ void store_output(RowState<D>& st, __nv_bfloat16* dst,
-                                             long long pitch, int row0, int n) {
+                                             long long pitch, int row0, int n, int cols = D) {
   const int t = threadIdx.x % WG_THREADS;
   const int quad = t & 3;
   const int r = (t >> 5) * 16 + ((t & 31) >> 2);
@@ -529,8 +582,9 @@ __device__ __forceinline__ void store_output(RowState<D>& st, __nv_bfloat16* dst
       __nv_bfloat16* out_row = dst + row * pitch + 2 * quad;
 #pragma unroll
       for (int c = 0; c < D / 8; ++c)
-        *reinterpret_cast<__nv_bfloat162*>(out_row + 8 * c) = __floats2bfloat162_rn(
-            st.o[4 * c + 2 * h] * inv, st.o[4 * c + 2 * h + 1] * inv);
+        if (8 * c < cols)
+          *reinterpret_cast<__nv_bfloat162*>(out_row + 8 * c) = __floats2bfloat162_rn(
+              st.o[4 * c + 2 * h] * inv, st.o[4 * c + 2 * h + 1] * inv);
     }
   }
 }

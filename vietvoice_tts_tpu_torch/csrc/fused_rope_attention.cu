@@ -13,9 +13,14 @@
 // two products are 4*B*H*N^2*D flops against 3*B*N*H*D*2 bytes of input,
 // i.e. hundreds of flops per byte: operations, not bytes.
 //
-// Two variants, chosen from (dtype, head_dim) alone:
+// Head widths: D = 64 and every multiple of 128 up to 1024, the TPU kernel's
+// (its D % 128 == 0 one head per grid cell, its D = 64 head pairs) up to the
+// width whose Q rows still fit in shared memory (attention_strided.cuh).
 //
-// "wgmma": bfloat16 (the serving type) at D = 64 and 128. Both products run
+// Two variants, chosen from (dtype, head_dim) alone; each has a path for
+// D = 64 and 128, and one for D >= 256:
+//
+// "wgmma": bfloat16 (the serving type). At D = 64 and 128 both products run
 //   on the tensor cores (attention_mma.cuh says how). A block is three
 //   warpgroups, 384 threads, for 128 query rows: two consumers, 64 query
 //   rows each, which do nothing but the two products and the softmax, and
@@ -45,6 +50,22 @@
 //   rows (attention_tile.cuh); 1/sqrt(D) is folded into q, which float32
 //   carries, and the softmax weights stay float32.
 //
+// D >= 256, both variants: two passes. The first (rope_kernel) rotates q and
+//   k of every head once, in float32, rounds once to the input type (the
+//   same arithmetic, so the same bits, as the producer above and the plain
+//   version) and writes them to a scratch buffer [2, B, N, H, D] that the
+//   wrapper allocates. The second is attention on the rotated q and k and on
+//   v where it lies in qkv: in bfloat16 flash_attention.cu's own
+//   (attention_strided.cuh: at D = 256 the tile step at width 256, two
+//   warpgroups of 64 query rows; above, 64-row blocks, one per column block
+//   of at most 256 output columns, Q resident, K and V streamed through a
+//   ring), in float32 attention_tile.cuh's column-blocked kernel. Why not rotate inside the tile loop as at D <= 128:
+//   RoPE pairs column c with c + D/2, so a streamed chunk of K would have to
+//   be built from two distant column ranges, and every query block (and
+//   every column block) would rotate all N keys again; a row rotated once
+//   costs one extra write and read of q and k (2 x 2 x B*N*H*D elements, in
+//   L2 at serving shapes) and none of that.
+//
 // Design, both variants. The TPU kernel held all N keys of a head in VMEM and
 // ran a two-pass exact softmax; shared memory here holds 64 keys at a time,
 // so a block walks the key axis in 64-key tiles with an online softmax
@@ -55,7 +76,10 @@
 // device of the TPU and is not needed: D is a template parameter. No atomics
 // and no split over keys across blocks: the same inputs give the same bits.
 
+#include <algorithm>
+
 #include "attention_mma.cuh"
+#include "attention_strided.cuh"
 #include "attention_tile.cuh"
 
 namespace {
@@ -197,6 +221,38 @@ struct MmaSmem {
   static constexpr size_t BYTES = EMPTY + MMA_STAGES * 8 + 1024;
 };
 
+// x * cos + rotate_half(x) * sin with (x1, x2) -> (-x2, x1) on two
+// neighbouring bf16 columns of the low half (x1) and of the high half (x2):
+// each product and the sum rounded to float32 as separate PyTorch operations
+// round them, then once to bfloat16.
+__device__ __forceinline__ float2 unpack_bf16x2(uint32_t w) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+}
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ void rotate_word(uint32_t x1, uint32_t x2, uint32_t c1, uint32_t c2,
+                                            uint32_t s1, uint32_t s2, uint32_t& out1,
+                                            uint32_t& out2) {
+  const float2 a = unpack_bf16x2(x1), b = unpack_bf16x2(x2);
+  const float2 ca = unpack_bf16x2(c1), cb = unpack_bf16x2(c2);
+  const float2 sa = unpack_bf16x2(s1), sb = unpack_bf16x2(s2);
+  out1 = pack_bf16x2(__fadd_rn(__fmul_rn(a.x, ca.x), __fmul_rn(-b.x, sa.x)),
+                     __fadd_rn(__fmul_rn(a.y, ca.y), __fmul_rn(-b.y, sa.y)));
+  out2 = pack_bf16x2(__fadd_rn(__fmul_rn(b.x, cb.x), __fmul_rn(a.x, sb.x)),
+                     __fadd_rn(__fmul_rn(b.y, cb.y), __fmul_rn(a.y, sb.y)));
+}
+
+// Eight columns c .. c + 7 and their partners c + D/2 .. of one row.
+__device__ __forceinline__ void rotate_chunk(uint4 x1, uint4 x2, uint4 c1, uint4 c2, uint4 s1,
+                                             uint4 s2, uint4& lo, uint4& hi) {
+  rotate_word(x1.x, x2.x, c1.x, c2.x, s1.x, s2.x, lo.x, hi.x);
+  rotate_word(x1.y, x2.y, c1.y, c2.y, s1.y, s2.y, lo.y, hi.y);
+  rotate_word(x1.z, x2.z, c1.z, c2.z, s1.z, s2.z, lo.z, hi.z);
+  rotate_word(x1.w, x2.w, c1.w, c2.w, s1.w, s2.w, lo.w, hi.w);
+}
+
 // A warpgroup thread's share of a batch of raw rows of q or k: two pairs of
 // 16-byte chunks, columns [8c, 8c + 8) and the same D/2 further on, with
 // their cos and sin (24 registers a pair). Pair p of a batch is row
@@ -238,10 +294,8 @@ struct RawRows {
     }
   }
 
-  // x * cos + rotate_half(x) * sin with (x1, x2) -> (-x2, x1), each product
-  // and the sum rounded to float32 as separate PyTorch operations round
-  // them, then once to bfloat16; stored as rows first_row .. of the tile at
-  // `tile`.
+  // x * cos + rotate_half(x) * sin (rotate_word), stored as rows
+  // first_row .. of the tile at `tile`.
   __device__ __forceinline__ void rotate_and_store(int t, uint32_t tile, int first_row) const {
     using L = mma::TileLayout<D>;
 #pragma unroll
@@ -250,37 +304,10 @@ struct RawRows {
       const int r = first_row + p / PAIRS_PER_ROW;
       const int chunk = p % PAIRS_PER_ROW;
       uint4 lo, hi;
-      rotate_word(x[i][0].x, x[i][1].x, cos[i][0].x, cos[i][1].x, sin[i][0].x, sin[i][1].x,
-                  lo.x, hi.x);
-      rotate_word(x[i][0].y, x[i][1].y, cos[i][0].y, cos[i][1].y, sin[i][0].y, sin[i][1].y,
-                  lo.y, hi.y);
-      rotate_word(x[i][0].z, x[i][1].z, cos[i][0].z, cos[i][1].z, sin[i][0].z, sin[i][1].z,
-                  lo.z, hi.z);
-      rotate_word(x[i][0].w, x[i][1].w, cos[i][0].w, cos[i][1].w, sin[i][0].w, sin[i][1].w,
-                  lo.w, hi.w);
+      rotate_chunk(x[i][0], x[i][1], cos[i][0], cos[i][1], sin[i][0], sin[i][1], lo, hi);
       mma::st_shared_16(tile + L::offset(r, chunk), lo);
       mma::st_shared_16(tile + L::offset(r, chunk + PAIRS_PER_ROW), hi);
     }
-  }
-
-  // Two neighbouring columns of the low half (x1) and of the high half (x2).
-  __device__ static __forceinline__ void rotate_word(uint32_t x1, uint32_t x2, uint32_t c1,
-                                                     uint32_t c2, uint32_t s1, uint32_t s2,
-                                                     uint32_t& out1, uint32_t& out2) {
-    const float2 a = unpack(x1), b = unpack(x2);
-    const float2 ca = unpack(c1), cb = unpack(c2);
-    const float2 sa = unpack(s1), sb = unpack(s2);
-    out1 = pack(__fadd_rn(__fmul_rn(a.x, ca.x), __fmul_rn(-b.x, sa.x)),
-                __fadd_rn(__fmul_rn(a.y, ca.y), __fmul_rn(-b.y, sa.y)));
-    out2 = pack(__fadd_rn(__fmul_rn(b.x, cb.x), __fmul_rn(a.x, sb.x)),
-                __fadd_rn(__fmul_rn(b.y, cb.y), __fmul_rn(a.y, sb.y)));
-  }
-  __device__ static __forceinline__ float2 unpack(uint32_t w) {
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
-  }
-  __device__ static __forceinline__ uint32_t pack(float lo, float hi) {
-    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&v);
   }
 };
 
@@ -403,43 +430,151 @@ cudaError_t launch_mma(const void* qkv, const void* cos_t, const void* sin_t,
   return cudaGetLastError();
 }
 
+// ---- D >= 256: RoPE once, then the wide attention ---------------------------
+
+constexpr int ROPE_THREADS = 256;
+
+// rot[w, b, i, h, :] = RoPE(q (w = 0) or k (w = 1) of head h at row i of
+// batch b). bfloat16: one thread per pair of 16-byte chunks (columns c .. c+7
+// and c + D/2 ..), rotated as the producer above rotates them.
+__global__ void __launch_bounds__(ROPE_THREADS)
+rope_bf16_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* __restrict__ cos_t,
+                 const __nv_bfloat16* __restrict__ sin_t, __nv_bfloat16* __restrict__ rot,
+                 int b, int n, int heads, int d) {
+  const int pairs = d / 16;
+  const long long total = 2LL * b * n * heads * pairs;
+  for (long long i = (long long)blockIdx.x * ROPE_THREADS + threadIdx.x; i < total;
+       i += (long long)gridDim.x * ROPE_THREADS) {
+    const int c = 8 * (int)(i % pairs);
+    long long r = i / pairs;  // ((w * b + bb) * n + row) * heads + h
+    const int h = (int)(r % heads);
+    const long long w_row = r / heads;  // (w * b + bb) * n + row
+    const int row = (int)(w_row % n);
+    const long long w_b = w_row / n;
+    const int bb = (int)(w_b % b);
+    const int w = (int)(w_b / b);
+    const __nv_bfloat16* src = qkv + ((long long)bb * n + row) * 3 * heads * d + (w * heads + h) * d;
+    const long long t = (long long)row * d + c;
+    uint4 lo, hi;
+    rotate_chunk(__ldg(reinterpret_cast<const uint4*>(src + c)),
+                 __ldg(reinterpret_cast<const uint4*>(src + c + d / 2)),
+                 __ldg(reinterpret_cast<const uint4*>(cos_t + t)),
+                 __ldg(reinterpret_cast<const uint4*>(cos_t + t + d / 2)),
+                 __ldg(reinterpret_cast<const uint4*>(sin_t + t)),
+                 __ldg(reinterpret_cast<const uint4*>(sin_t + t + d / 2)), lo, hi);
+    __nv_bfloat16* dst = rot + r * d;
+    *reinterpret_cast<uint4*>(dst + c) = lo;
+    *reinterpret_cast<uint4*>(dst + c + d / 2) = hi;
+  }
+}
+
+// float32: one thread per element, as rope_elem rotates it.
+__global__ void __launch_bounds__(ROPE_THREADS)
+rope_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ cos_t,
+                const float* __restrict__ sin_t, float* __restrict__ rot, int b, int n,
+                int heads, int d) {
+  const int half = d / 2;
+  const long long total = 2LL * b * n * heads * d;
+  for (long long i = (long long)blockIdx.x * ROPE_THREADS + threadIdx.x; i < total;
+       i += (long long)gridDim.x * ROPE_THREADS) {
+    const int c = (int)(i % d);
+    const long long r = i / d;
+    const int h = (int)(r % heads);
+    const long long w_row = r / heads;
+    const int row = (int)(w_row % n);
+    const long long w_b = w_row / n;
+    const int bb = (int)(w_b % b);
+    const int w = (int)(w_b / b);
+    const float* src = qkv + ((long long)bb * n + row) * 3 * heads * d + (w * heads + h) * d;
+    const float x = src[c];
+    const float partner = src[c < half ? c + half : c - half];
+    const float rotated = c < half ? -partner : partner;
+    const long long t = (long long)row * d + c;
+    rot[i] = x * cos_t[t] + rotated * sin_t[t];
+  }
+}
+
+// Pass 1 into scratch [2, b, n, heads, d], pass 2 on it.
+template <typename T>
+cudaError_t launch_wide_fused(const void* qkv, const void* cos_t, const void* sin_t,
+                              const void* mask, void* out, void* scratch, int b, int n,
+                              int heads, int d, cudaStream_t stream) {
+  const long long work = 2LL * b * n * heads * (sizeof(T) == 2 ? d / 16 : d);
+  const int blocks = (int)std::min<long long>((work + ROPE_THREADS - 1) / ROPE_THREADS, 132 * 16);
+  const T* src = static_cast<const T*>(qkv);
+  T* rot = static_cast<T*>(scratch);
+  if constexpr (sizeof(T) == 2)
+    rope_bf16_kernel<<<blocks, ROPE_THREADS, 0, stream>>>(
+        src, static_cast<const T*>(cos_t), static_cast<const T*>(sin_t), rot, b, n, heads, d);
+  else
+    rope_f32_kernel<<<blocks, ROPE_THREADS, 0, stream>>>(
+        src, static_cast<const T*>(cos_t), static_cast<const T*>(sin_t), rot, b, n, heads, d);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long row = (long long)heads * d;  // rotated rows: [.., n, heads, d]
+  const Strides s_rot{(long long)n * row, d, row};
+  const Strides s_v{3LL * n * row, d, 3 * row};
+  const T* q_rot = rot;
+  const T* k_rot = rot + (long long)b * n * row;
+  const T* v = src + 2 * row;
+  if constexpr (sizeof(T) == 2)
+    return mma::launch_strided(q_rot, k_rot, v, mask, out, s_rot, s_rot, s_v, b, heads, n, d,
+                               stream);
+  else
+    return launch_tile_wide(q_rot, k_rot, v, static_cast<const uint8_t*>(mask),
+                            static_cast<float*>(out), s_rot, s_rot, s_v, b, heads, n, d, stream);
+}
+
 }  // namespace
 
 // The variant that serves (head_dim, dtype; 0 = float32, 1 = bfloat16):
-// 1 = "wgmma", 0 = "simt", -1 = no kernel.
+// 1 = "wgmma", 0 = "simt", -1 = no kernel. head_dim 64, or a multiple of
+// 128 up to 1024.
 extern "C" int vv_fused_rope_attention_variant(int head_dim, int dtype) {
-  if ((dtype != 0 && dtype != 1) || (head_dim != 64 && head_dim != 128)) return -1;
+  const bool served = head_dim == 64 ||
+                      (head_dim % 128 == 0 && head_dim >= 128 && head_dim <= mma::WIDE_MAX_D);
+  if ((dtype != 0 && dtype != 1) || !served) return -1;
   return dtype;
 }
 
 // dtype: 0 = float32, 1 = bfloat16. qkv [b, n, 3*heads*head_dim], cos/sin
 // [n, head_dim] in the same dtype, mask [b, n] uint8 (nonzero = valid key),
-// out [b, n, heads*head_dim]; all contiguous on the current device. The
-// tensor-core variant needs qkv, cos and sin on 16-byte boundaries
+// out [b, n, heads*head_dim]; all contiguous on the current device. scratch:
+// for head_dim >= 256, room for [2, b, n, heads, head_dim] elements of the
+// dtype (the rotated q and k), else unused (may be null). The tensor-core
+// variant needs qkv, cos, sin and scratch on 16-byte boundaries
 // (cudaErrorMisalignedAddress otherwise).
 // Returns a cudaError_t (0 on success).
 extern "C" int vv_fused_rope_attention(const void* qkv, const void* cos_t,
                                        const void* sin_t, const void* mask,
-                                       void* out, int b, int n, int heads,
+                                       void* out, void* scratch, int b, int n, int heads,
                                        int head_dim, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (b <= 0 || n <= 0 || heads <= 0 || b > 65535 || heads > 65535)
     return (int)cudaErrorInvalidValue;
   const int variant = vv_fused_rope_attention_variant(head_dim, dtype);
+  if (variant < 0) return (int)cudaErrorInvalidValue;
+  const bool wide = head_dim >= 256;
+  if (wide && scratch == nullptr) return (int)cudaErrorInvalidValue;
   if (variant == 1) {
     // 16-byte loads: every address the kernel derives is a multiple of 8
     // elements from these.
     if (reinterpret_cast<uintptr_t>(qkv) % 16 != 0 ||
         reinterpret_cast<uintptr_t>(cos_t) % 16 != 0 ||
-        reinterpret_cast<uintptr_t>(sin_t) % 16 != 0)
+        reinterpret_cast<uintptr_t>(sin_t) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
       return (int)cudaErrorMisalignedAddress;
+    if (wide)
+      return (int)launch_wide_fused<__nv_bfloat16>(qkv, cos_t, sin_t, mask, out, scratch, b, n,
+                                                   heads, head_dim, s);
     if (head_dim == 128)
       return (int)launch_mma<128>(qkv, cos_t, sin_t, mask, out, b, n, heads, s);
     return (int)launch_mma<64>(qkv, cos_t, sin_t, mask, out, b, n, heads, s);
   }
-  if (variant == 0 && head_dim == 128)
+  if (wide)
+    return (int)launch_wide_fused<float>(qkv, cos_t, sin_t, mask, out, scratch, b, n, heads,
+                                         head_dim, s);
+  if (head_dim == 128)
     return (int)launch<float, 128>(qkv, cos_t, sin_t, mask, out, b, n, heads, s);
-  if (variant == 0)
-    return (int)launch<float, 64>(qkv, cos_t, sin_t, mask, out, b, n, heads, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)launch<float, 64>(qkv, cos_t, sin_t, mask, out, b, n, heads, s);
 }

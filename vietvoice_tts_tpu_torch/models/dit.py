@@ -6,19 +6,19 @@ Same network and numerics as the JAX module, written as an ``nn.Module``:
   depend only on t, so the sampler computes them for the whole time grid
   once (:meth:`DiT.time_modulations`) and passes them in.
 - Packed QKV ``[q_heads ‖ k_heads ‖ v_heads]`` along the feature dim, and
-  two attention routes, picked once per forward from (heads, head_dim):
-  where the fused RoPE-attention kernel's ``supports_shape`` holds (head_dim
-  64 or 128) the packed projection goes to its wrapper
+  two attention routes, picked once per forward from (heads, head_dim), as
+  the JAX module picks them: where the fused RoPE-attention kernel's
+  ``supports_shape`` holds (head_dim 64 or a multiple of 128 up to 1024,
+  where JAX's fused kernel runs) the packed projection goes to its wrapper
   (``ops/kernels/fused_rope_attention.py``); any other head shape takes the
   split-heads route of ``vietvoice_tts_tpu/models/dit.py:415-423``: split
   into ``[B, H, N, D]``, ``apply_rope`` on q and k in plain ops, then
   ``ops/attention.py:attention``, whose kernel is ``flash_attention``
-  (head_dim 32, 64, 96, 128 or 256). head_dim 256 therefore goes to
-  ``flash_attention`` here, while the JAX package's fused kernel takes it.
+  (head_dim a multiple of 8 up to 1024: 32, 48, 72, 96, 192, 320, ...).
   With ``use_kernels`` each wrapper launches its CUDA kernel on CUDA
-  tensors or raises (a head_dim neither kernel takes is never served by a
-  plain version on the card); without it, and for CPU tensors, the plain
-  versions run.
+  tensors or raises (a head_dim neither kernel takes — not a multiple of 8,
+  or above 1024 — is never served by a plain version on the card); without
+  it, and for CPU tensors, the plain versions run.
 - The sampler's deep-block cache (``shallow_blocks`` / ``deep_state`` /
   ``return_deep_state`` of :meth:`DiT.forward_embedded`).
 - The residual stream and matmuls are in ``compute_dtype``; LayerNorm

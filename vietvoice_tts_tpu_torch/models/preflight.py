@@ -99,9 +99,11 @@ def _op_coverage(models) -> Dict[str, dict]:
 def attention_route(heads: int, head_dim: int, n_frames: int) -> dict:
     """The DiT's attention route on the card for this head shape (the choice
     ``models/dit.py:DiT._attend`` makes): ``kernel`` 1 (the fused RoPE
-    attention on the packed QKV), 2 (the split-heads route's attention), or
-    None when neither kernel takes the shape — with ``use_kernels`` such a
-    model raises on the card. Both kernels take any frame count."""
+    attention on the packed QKV: head_dim 64 or a multiple of 128 up to 1024,
+    as JAX's fused kernel), 2 (the split-heads route's attention: any other
+    multiple of 8 up to 1024), or None when neither kernel takes the shape —
+    with ``use_kernels`` such a model raises on the card. Both kernels take
+    any frame count."""
     from ..ops.kernels import flash_attention, fused_rope_attention
 
     shape = f"heads={heads} head_dim={head_dim}"
@@ -115,7 +117,7 @@ def attention_route(heads: int, head_dim: int, n_frames: int) -> dict:
             "(csrc/flash_attention.cu)")}
     return {"kernel": None, "advice": (
         f"{shape}: no CUDA attention kernel takes head_dim {head_dim} (kernel 1: "
-        f"{fused_rope_attention.HEAD_DIMS}, kernel 2: {flash_attention.HEAD_DIMS}) "
+        f"{fused_rope_attention.HEAD_DIM_RULE}; kernel 2: {flash_attention.HEAD_DIM_RULE}) "
         "— the card cannot serve this model with use_kernels")}
 
 

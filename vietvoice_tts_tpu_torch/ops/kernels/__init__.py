@@ -3,6 +3,11 @@ wrappers and plain PyTorch versions."""
 
 import torch
 
+# Head widths the attention kernels take: multiples of 8 (rows of 16 bytes in
+# bfloat16) up to MAX_HEAD_DIM, whose Q rows still fit in shared memory
+# (csrc/attention_strided.cuh).
+MAX_HEAD_DIM = 1024
+
 
 def refuse_autograd(kernel: str, *inputs: torch.Tensor) -> None:
     """Raise if autograd would record this call: the kernels have no

@@ -3,11 +3,14 @@
 Port of the Pallas TPU kernel ``flash_attention``
 (``vietvoice_tts_tpu/ops/pallas/flash_attention.py:53``). The kernel itself
 is ``csrc/flash_attention.cu`` (its header says how it is laid out on the
-card). It has two variants, chosen from (dtype, head_dim) alone
-(:func:`kernel_variant`): ``"wgmma"``, bfloat16 at head_dim 32, 64 and 128,
-runs both products on Hopper's tensor cores and rounds the softmax weights
-to bfloat16 for P·V; ``"simt"``, float32 at every head_dim and bfloat16 at 96
-and 256, computes in float32 on the SIMT pipes. This module holds
+card). It takes every head_dim that is a multiple of 8 up to
+:data:`MAX_HEAD_DIM` (1024), and has two variants, chosen from the dtype
+alone (:func:`kernel_variant`): ``"wgmma"``, bfloat16, runs both products on
+Hopper's tensor cores (up to 256 at the smallest tile width of 32, 64, 128,
+192 or 256 that holds the head, its extra columns zero; above 256 in column
+blocks of at most 256 columns, ``csrc/attention_strided.cuh``) and rounds the softmax weights to bfloat16 for
+P·V; ``"simt"``, float32, computes in float32 on the SIMT pipes. This module
+holds
 
 - :func:`flash_attention`, the wrapper: it checks its inputs, launches the
   kernel for CUDA tensors (or raises) and runs the plain version for CPU
@@ -30,12 +33,11 @@ import functools
 import torch
 
 from ..attention import attention
-from . import refuse_autograd
+from . import MAX_HEAD_DIM, refuse_autograd
 from .build import load_library
 
 KERNEL = "flash_attention"
-HEAD_DIMS = (32, 64, 96, 128, 256)
-WGMMA_HEAD_DIMS = (32, 64, 128)  # bfloat16 on the tensor cores
+HEAD_DIM_RULE = f"a multiple of 8 up to {MAX_HEAD_DIM}"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Kernel launches by this process; callers may reset it to 0. A CUDA graph's
@@ -46,8 +48,9 @@ launches = 0
 
 def supports_shape(heads: int, head_dim: int, n: int) -> bool:
     """True when the CUDA kernel has a code path for this attention shape:
-    any head and frame count, head_dim in :data:`HEAD_DIMS`."""
-    return heads >= 1 and n >= 1 and head_dim in HEAD_DIMS
+    any head and frame count, head_dim a multiple of 8 (rows of 16 bytes in
+    bfloat16) up to :data:`MAX_HEAD_DIM`."""
+    return heads >= 1 and n >= 1 and 8 <= head_dim <= MAX_HEAD_DIM and head_dim % 8 == 0
 
 
 def kernel_variant(dtype: torch.dtype, head_dim: int) -> str:
@@ -56,9 +59,9 @@ def kernel_variant(dtype: torch.dtype, head_dim: int) -> str:
     entry point makes, restated here so that tests without a card hold it."""
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"the attention kernel takes float32 or bfloat16, got {dtype}")
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(f"the attention kernel takes head_dim in {HEAD_DIMS}, got {head_dim}")
-    return "wgmma" if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS else "simt"
+    if not supports_shape(1, head_dim, 1):
+        raise ValueError(f"the attention kernel takes head_dim {HEAD_DIM_RULE}, got {head_dim}")
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
 
 
 def _check_inputs(q, k, v, mask) -> None:
@@ -104,7 +107,7 @@ def flash_attention(
     b, heads, n, d = q.shape
     if not supports_shape(heads, d, n):
         raise ValueError(
-            f"the attention kernel takes head_dim in {HEAD_DIMS}; got "
+            f"the attention kernel takes head_dim {HEAD_DIM_RULE}; got "
             f"heads={heads} head_dim={d} frames={n}"
         )
     strides = []

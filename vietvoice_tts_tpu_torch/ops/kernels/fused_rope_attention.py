@@ -3,7 +3,12 @@
 Port of the Pallas TPU kernel ``fused_qkv_rope_attention``
 (``vietvoice_tts_tpu/ops/pallas/fused_rope_attention.py:123``). The kernel
 itself is ``csrc/fused_rope_attention.cu`` (its header says how it is laid
-out on the card). It has two variants, chosen from (dtype, head_dim) alone
+out on the card). It takes head_dim 64 and every multiple of 128 up to
+:data:`MAX_HEAD_DIM` (1024): the TPU kernel's widths, up to the one whose
+query rows still fit in shared memory. From 256 it runs in two passes: q and
+k rotated once into a scratch buffer this wrapper allocates, then
+``flash_attention``'s own code on them and on v where it lies. It has two
+variants, chosen from the dtype alone
 (:func:`kernel_variant`): ``"wgmma"``, bfloat16 (the serving type), runs both
 products on Hopper's tensor cores and rounds the softmax weights to bfloat16
 for P·V; ``"simt"``, float32, computes on the SIMT pipes. This module holds
@@ -29,11 +34,12 @@ import torch
 
 from ..attention import attention
 from ..rope import apply_rope
-from . import refuse_autograd
+from . import MAX_HEAD_DIM, refuse_autograd
 from .build import load_library
 
 KERNEL = "fused_rope_attention"
-HEAD_DIMS = (64, 128)
+HEAD_DIM_RULE = f"64 or a multiple of 128 up to {MAX_HEAD_DIM}"
+SCRATCH_FROM = 256  # head_dim from which a call rotates q and k into scratch first
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Kernel launches by this process; callers may reset it to 0. A CUDA graph's
@@ -43,10 +49,15 @@ launches = 0
 
 
 def supports_shape(heads: int, head_dim: int, n: int) -> bool:
-    """True when the CUDA kernel has a code path for this attention shape
-    (any frame count; head_dim 64 or 128, which covers the default 8×128
-    model and converted F5 models, 16×64)."""
-    return heads >= 1 and n >= 1 and head_dim in HEAD_DIMS
+    """True when the CUDA kernel has a code path for this attention shape:
+    any head and frame count, head_dim 64 or a multiple of 128 up to
+    :data:`MAX_HEAD_DIM`. That holds wherever the JAX kernel's
+    ``supports_shape`` does (``n % 8 == 0`` and ``head_dim % 128 == 0``, or 64
+    with even heads) up to 1024; it covers the default 8×128 model and
+    converted F5 models, 16×64."""
+    return heads >= 1 and n >= 1 and (
+        head_dim == 64 or (head_dim % 128 == 0 and 128 <= head_dim <= MAX_HEAD_DIM)
+    )
 
 
 def kernel_variant(dtype: torch.dtype, head_dim: int) -> str:
@@ -55,9 +66,9 @@ def kernel_variant(dtype: torch.dtype, head_dim: int) -> str:
     entry point makes, restated here so that tests without a card hold it."""
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"the fused attention kernel takes float32 or bfloat16, got {dtype}")
-    if head_dim not in HEAD_DIMS:
+    if not supports_shape(1, head_dim, 1):
         raise ValueError(
-            f"the fused attention kernel takes head_dim in {HEAD_DIMS}, got {head_dim}"
+            f"the fused attention kernel takes head_dim {HEAD_DIM_RULE}, got {head_dim}"
         )
     return "wgmma" if dtype == torch.bfloat16 else "simt"
 
@@ -133,7 +144,7 @@ def fused_qkv_rope_attention(
     b, n, _ = qkv.shape
     if not supports_shape(heads, d, n):
         raise ValueError(
-            f"the fused attention kernel takes head_dim in {HEAD_DIMS}; got "
+            f"the fused attention kernel takes head_dim {HEAD_DIM_RULE}; got "
             f"heads={heads} head_dim={d} frames={n}"
         )
     if qkv.device.type != "cuda":
@@ -150,12 +161,18 @@ def fused_qkv_rope_attention(
     sin = sin.to(qkv.dtype).contiguous()
     mask = mask.contiguous().view(torch.uint8)
     out = torch.empty((b, n, heads * d), dtype=qkv.dtype, device=qkv.device)
+    # The rotated q and k of the two-pass widths.
+    scratch = (
+        torch.empty((2, b, n, heads, d), dtype=qkv.dtype, device=qkv.device)
+        if d >= SCRATCH_FROM else None
+    )
     entry = _kernel_entry()
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = entry(
             qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), b, n, heads, d, _DTYPE_CODES[qkv.dtype], stream,
+            out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            b, n, heads, d, _DTYPE_CODES[qkv.dtype], stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_rope_attention launch failed: CUDA error {err}")
@@ -170,5 +187,5 @@ def _kernel_entry():
     # Pointers and the stream as c_void_p: ctypes would pass a bare Python
     # int as a 32-bit C int and cut the address.
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     return fn
