@@ -22,17 +22,19 @@ check raises):
    each kernel took before and those from 256 for kernel 1, 72, 96 and 320
    for kernel 2), in float32 (max-abs ≤ 1e-4: both sides are
    true f32 with TF32 off) and bfloat16 (max-abs ≤ 1e-2, about one bf16 ulp
-   of an output below 2), with the variant that ran (``wgmma`` or ``simt``;
-   the wrapper's and the library's must agree, and bfloat16 must be on
-   ``wgmma``) and kernel and plain times; for
+   of an output below 2), with the variant that ran (``wgmma`` in bfloat16,
+   ``tf32x3`` in float32: both on the tensor cores; the wrapper's and the
+   library's must agree) and kernel and plain times; in float32 also
+   against the plain emulation of the kernel's split-TF32 products
+   (``attention_tf32x3``, ``fused_qkv_rope_attention_tf32x3``), and the q
+   and k that kernel 1's rotation pass writes equal the plain rotation bit
+   for bit (both dtypes, wherever a call runs two passes); for
    ``flash_attention`` also with v as a strided view of a packed projection
    (the DiT's layout) and beside ``scaled_dot_product_attention`` (and the
    backend PyTorch picks for it), a yardstick that the package never calls.
-   The kernels' record lists, shape by shape (``shapes``), the widths
-   beyond kernel 1's 64 and 128 and kernel 2's 32, 64 and 128. In float32
-   kernel 2's column-blocked kernel, which serves the widths without a
-   float32 kernel of their own, is also held against the plain version and
-   timed beside those kernels at their widths (``f32_column_blocked``).
+   The kernels' record lists, shape by shape (``shapes``), every float32
+   case and the bfloat16 widths beyond kernel 1's 64 and 128 and kernel
+   2's 32, 64 and 128.
 4. Whole-path parity at full width, for both attention routes of the DiT:
    the default model (8 heads × 128, the fused RoPE kernel) and the same
    widths split 32 × 32 (the split-heads route, ``flash_attention``). The
@@ -312,13 +314,13 @@ KERNEL_SHAPES = [
 LATENCY_SHAPE = (2, 448, 8, 128)
 # Phase-3 cases of each kernel: (shape, dtypes). Every shape above in both
 # dtypes; then the head widths from 256 up, which the fused kernel serves in
-# two passes (q and k rotated into scratch, then the wide kernel): phase
-# 15's heads at the short sentence's batch-1 bucket 448 (4 × 256, 3 × 384,
-# 2 × 512) and 2 × 512 as the long text's three chunks at 2048 in one batch;
-# float32 at one of them.
+# two passes in bfloat16 too (q and k rotated into scratch, then the wide
+# kernel): phase 15's heads at the short sentence's batch-1 bucket 448
+# (4 × 256, 3 × 384, 2 × 512, both dtypes) and 2 × 512 as the long text's
+# three chunks at 2048 in one batch.
 KERNEL_CASES = [(shape, ("float32", "bfloat16")) for shape in KERNEL_SHAPES] + [
-    ((2, 448, 4, 256), ("bfloat16",)),
-    ((2, 448, 3, 384), ("bfloat16",)),
+    ((2, 448, 4, 256), ("float32", "bfloat16")),
+    ((2, 448, 3, 384), ("float32", "bfloat16")),
     ((2, 448, 2, 512), ("float32", "bfloat16")),
     ((6, 2048, 2, 512), ("bfloat16",)),
 ]
@@ -342,18 +344,18 @@ FLASH_SHAPES = [
 ]
 FLASH_CASES = [(shape, ("float32", "bfloat16")) for shape in FLASH_SHAPES] + [
     ((2, 16, 448, 72), ("float32", "bfloat16")),
-    ((2, 12, 448, 96), ("bfloat16",)),
-    ((2, 4, 448, 320), ("bfloat16",)),
+    ((2, 12, 448, 96), ("float32", "bfloat16")),
+    ((2, 4, 448, 320), ("float32", "bfloat16")),
 ]
 FLASH_LATENCY_SHAPE = (2, 32, 448, 32)
-# Head widths with a float32 kernel of their own in csrc/flash_attention.cu
-# (launch_f32); every other width runs the column-blocked kernel.
-F32_OWN_WIDTHS = (32, 64, 96)
 # Published peaks of one H100 SXM (NVIDIA's data sheet; dense): device
-# memory bytes/s, and flop/s by input type (bf16 on the tensor cores,
-# float32 on the SIMT pipes, which is what true-float32 parity runs on).
+# memory bytes/s, and flop/s by input type, both on the tensor cores:
+# bfloat16 at 989 TFLOP/s; float32 as the kernels take it, in split TF32,
+# three TF32 products (495 TFLOP/s) for every float32 one, so 495 / 3 = 165
+# TFLOP/s of float32 work (the SIMT pipes' 67 would let a tensor-core kernel
+# read above 100% of its bound).
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12 / 3}
 TOLERANCE = {"float32": 1e-4, "bfloat16": 1e-2}
 # Std of the AdaLN gate perturbation (blocks.ada, final_ada) at dim 1024:
 # gates of std ≈ 0.01·|t_emb| — open enough that every block's attention
@@ -481,20 +483,21 @@ def _c_variant(module, dtype_name: str, d: int) -> str | None:
     fn = getattr(load_library(module.KERNEL), f"vv_{module.KERNEL}_variant")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int, ctypes.c_int]
-    return {1: "wgmma", 0: "simt"}.get(fn(d, {"float32": 0, "bfloat16": 1}[dtype_name]))
+    return {1: "wgmma", 2: "tf32x3"}.get(fn(d, {"float32": 0, "bfloat16": 1}[dtype_name]))
 
 
 def _checked_variant(module, dtype_name: str, d: int) -> str:
     """The variant that serves (dtype, head_dim), the same from the wrapper
-    and from the library; never the SIMT one in bfloat16."""
+    and from the library: ``wgmma`` in bfloat16, ``tf32x3`` in float32."""
     import torch
 
     variant = module.kernel_variant(getattr(torch, dtype_name), d)
     if _c_variant(module, dtype_name, d) != variant:
         raise AssertionError(f"{module.KERNEL} D={d} {dtype_name}: the library's variant "
                              f"{_c_variant(module, dtype_name, d)}, the wrapper's {variant}")
-    if dtype_name == "bfloat16" and variant != "wgmma":
-        raise AssertionError(f"{module.KERNEL} D={d}: bfloat16 on the {variant} variant")
+    want = {"bfloat16": "wgmma", "float32": "tf32x3"}[dtype_name]
+    if variant != want:
+        raise AssertionError(f"{module.KERNEL} D={d}: {dtype_name} on the {variant} variant")
     return variant
 
 
@@ -503,9 +506,57 @@ def _valid_lengths(b: int, n: int) -> list[int]:
     return [n if i % 2 else n - max(1, (3 * n) // 10) for i in range(b)]
 
 
+def _valid_max_abs(out, ref, valid, frame_axis: int) -> float:
+    """max-abs over each batch row's valid frames (frame_axis of a row)."""
+    return max((out[i].narrow(frame_axis, 0, v).float()
+                - ref[i].narrow(frame_axis, 0, v).float()).abs().max().item()
+               for i, v in enumerate(valid))
+
+
+def _rotation_pass(fra, qkv, cos, sin, mask, heads: int):
+    """The rotated q and k [B, H, N, D] that kernel 1's first pass writes,
+    read from a scratch buffer handed to the library's entry point (a
+    comparison: no launch is counted)."""
+    import torch
+
+    b, n, three_hd = qkv.shape
+    d = three_hd // (3 * heads)
+    scratch = torch.empty((2, b, n, heads, d), dtype=qkv.dtype, device=qkv.device)
+    out = torch.empty((b, n, heads * d), dtype=qkv.dtype, device=qkv.device)
+    cos_t, sin_t = (t.to(qkv.dtype).contiguous() for t in (cos, sin))
+    err = fra._kernel_entry()(
+        qkv.data_ptr(), cos_t.data_ptr(), sin_t.data_ptr(),
+        mask.contiguous().view(torch.uint8).data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        b, n, heads, d, {torch.float32: 0, torch.bfloat16: 1}[qkv.dtype],
+        torch.cuda.current_stream(qkv.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_rope_attention launch failed: CUDA error {err}")
+    torch.cuda.synchronize()
+    return scratch[0].transpose(1, 2), scratch[1].transpose(1, 2)
+
+
+def _check_rotation(fra, qkv, cos, sin, mask, heads: int, label: str) -> None:
+    """The first pass's q and k equal the plain rotation (``apply_rope`` in
+    float32, rounded once to the input type) bit for bit."""
+    import torch
+
+    from vietvoice_tts_tpu_torch.ops.rope import apply_rope
+
+    b, n, three_hd = qkv.shape
+    d = three_hd // (3 * heads)
+    c, s_ = cos.to(qkv.dtype).float(), sin.to(qkv.dtype).float()
+    for name, got, t in zip("qk", _rotation_pass(fra, qkv, cos, sin, mask, heads),
+                            qkv.chunk(3, dim=-1)[:2]):
+        want = apply_rope(t.reshape(b, n, heads, d).transpose(1, 2).float(), c, s_)
+        if not torch.equal(got, want.to(qkv.dtype)):
+            raise AssertionError(f"{label}: the rotation pass's {name} differs from the plain "
+                                 f"rotation (max-abs {(got.float() - want).abs().max().item():.3e})")
+
+
 def phase_kernels(card: str) -> dict:
-    """The fused RoPE kernel vs its plain version at every shape and dtype;
-    returns the record."""
+    """The fused RoPE kernel vs its plain version at every shape and dtype
+    (and, in float32, vs the emulation of its split-TF32 products); returns
+    the record."""
     import torch
 
     from vietvoice_tts_tpu_torch.ops.kernels import fused_rope_attention as fra
@@ -532,15 +583,19 @@ def phase_kernels(card: str) -> dict:
             out = fra.fused_qkv_rope_attention(qkv, cos, sin, mask, heads)
             ref = fra.fused_qkv_rope_attention_reference(qkv, cos, sin, mask, heads)
             torch.cuda.synchronize()
-            err = max(
-                (out[i, :v].float() - ref[i, :v].float()).abs().max().item()
-                for i, v in enumerate(valid)
-            )
-            if not np.isfinite(err) or err > tol:
-                raise AssertionError(
-                    f"kernel vs plain at B={b} N={n} H={heads} D={d} "
-                    f"{dtype_name}: max-abs {err:.3e} > {tol:.0e}"
-                )
+            err = _valid_max_abs(out, ref, valid, 0)
+            label = f"B={b} N={n} H={heads} D={d} {dtype_name}"
+            emu_err = None
+            if dtype_name == "float32":
+                emu = fra.fused_qkv_rope_attention_tf32x3(qkv, cos, sin, mask, heads)
+                emu_err = _valid_max_abs(out, emu, valid, 0)
+                del emu
+            for what, e in (("plain", err), ("its emulation", emu_err)):
+                if e is not None and (not np.isfinite(e) or e > tol):
+                    raise AssertionError(
+                        f"kernel vs {what} at {label}: max-abs {e:.3e} > {tol:.0e}")
+            if d >= fra.SCRATCH_FROM[dtype]:
+                _check_rotation(fra, qkv, cos, sin, mask, heads, f"fused_rope {label}")
             worst = max(worst, err)
             ms = cuda_ms(lambda: fra.fused_qkv_rope_attention(qkv, cos, sin, mask, heads))
             plain_ms = cuda_ms(
@@ -550,16 +605,18 @@ def phase_kernels(card: str) -> dict:
             flops = 4.0 * heads * d * n * sum(valid)
             bound_ms, bound_by = bound((qkv, cos, sin, mask, out), flops, dtype_name)
             measured[(b, n, heads, d, dtype_name)] = (ms, plain_ms, bound_ms, bound_by)
-            if d not in (64, 128):  # the two-pass widths, into the record
+            if dtype_name == "float32" or d not in (64, 128):  # into the record
                 shapes.append({"shape": [b, n, heads, d], "dtype": dtype_name,
-                               "variant": variant, "max_abs_err": err, "ms": ms,
+                               "variant": variant, "max_abs_err": err,
+                               "emulation_max_abs_err": emu_err, "ms": ms,
                                "plain_ms": plain_ms, "bound_ms": bound_ms,
                                "bound_by": bound_by})
+            emu_note = "" if emu_err is None else f", vs emulation {emu_err:.3e}"
             log(
                 f"[3] fused_rope B={b} N={n} H={heads} D={d} {dtype_name} "
                 f"{variant}: max-abs "
-                f"{err:.3e} (tol {tol:.0e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"bound {bound_ms:.5f} ms ({bound_by}) [{card}]"
+                f"{err:.3e}{emu_note} (tol {tol:.0e}); kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}) [{card}]"
             )
             # The plain version's scores at (128, 512, 8, 128) in f32 take
             # 1 GiB: hand every block back before the next shape.
@@ -582,36 +639,10 @@ def phase_kernels(card: str) -> dict:
     }
 
 
-def _f32_blocked(q, k, v, mask):
-    """flash_attention's float32 column-blocked kernel at q's head width,
-    through ``vv_flash_attention_f32_blocked``: the kernel the wrapper takes
-    at the widths without a float32 kernel of their own, here timed against
-    those kernels. No launch count: the main path does not come here."""
-    import ctypes
-
-    import torch
-
-    from vietvoice_tts_tpu_torch.ops.kernels.build import load_library
-
-    fn = load_library("flash_attention").vv_flash_attention_f32_blocked
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    b, heads, n, d = q.shape
-    out = torch.empty((b, n, heads, d), dtype=torch.float32, device=q.device)
-    strides = [st for t in (q, k, v) for st in t.stride()[:3]]
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             mask.contiguous().view(torch.uint8).data_ptr(), out.data_ptr(),
-             (ctypes.c_longlong * 9)(*strides), b, heads, n, d,
-             torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"vv_flash_attention_f32_blocked failed: CUDA error {err}")
-    return out.transpose(1, 2)
-
-
 def phase_flash_kernel(card: str) -> dict:
     """flash_attention vs ``ops.attention.attention`` at every shape, dtype
-    and layout; returns the record (times at the latency shape, bf16, v as
+    and layout (and, in float32, vs the emulation of its split-TF32
+    products); returns the record (times at the latency shape, bf16, v as
     the DiT passes it)."""
     import torch
     import torch.nn.functional as F
@@ -624,7 +655,6 @@ def phase_flash_kernel(card: str) -> dict:
     worst = 0.0
     measured = {}
     shapes = []
-    blocked = []
     for (b, heads, n, d), dtypes in FLASH_CASES:
         for dtype_name in dtypes:
             tol = TOLERANCE[dtype_name]
@@ -649,15 +679,15 @@ def phase_flash_kernel(card: str) -> dict:
                 out = fa.flash_attention(q, k, v, mask)
                 ref = attention(q, k, v, mask)
                 torch.cuda.synchronize()
-                err = max(
-                    (out[i, :, :nv].float() - ref[i, :, :nv].float()).abs().max().item()
-                    for i, nv in enumerate(valid)
-                )
-                if not np.isfinite(err) or err > tol:
-                    raise AssertionError(
-                        f"flash kernel vs plain at B={b} H={heads} N={n} D={d} "
-                        f"{dtype_name} {layout}: max-abs {err:.3e} > {tol:.0e}"
-                    )
+                err = _valid_max_abs(out, ref, valid, 1)
+                emu_err = None
+                if dtype_name == "float32":
+                    emu_err = _valid_max_abs(out, fa.attention_tf32x3(q, k, v, mask), valid, 1)
+                for what, e in (("plain", err), ("its emulation", emu_err)):
+                    if e is not None and (not np.isfinite(e) or e > tol):
+                        raise AssertionError(
+                            f"flash kernel vs {what} at B={b} H={heads} N={n} D={d} "
+                            f"{dtype_name} {layout}: max-abs {e:.3e} > {tol:.0e}")
                 worst = max(worst, err)
                 ms = cuda_ms(lambda: fa.flash_attention(q, k, v, mask))
                 plain_ms = cuda_ms(lambda: attention(q, k, v, mask))
@@ -673,38 +703,20 @@ def phase_flash_kernel(card: str) -> dict:
                 bound_ms, bound_by = bound((q, k, v, mask, out), flops, dtype_name)
                 measured[(b, heads, n, d, dtype_name, layout)] = (
                     ms, plain_ms, library_ms, bound_ms, bound_by)
-                if d not in (32, 64, 128):  # the padded and wide widths
+                if dtype_name == "float32" or d not in (32, 64, 128):  # into the record
                     shapes.append({"shape": [b, heads, n, d], "dtype": dtype_name,
                                    "layout": layout, "variant": variant, "max_abs_err": err,
-                                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                   "emulation_max_abs_err": emu_err, "ms": ms,
+                                   "plain_ms": plain_ms, "bound_ms": bound_ms,
                                    "bound_by": bound_by, "library_ms": library_ms,
                                    "library_backend": backend})
+                emu_note = "" if emu_err is None else f", vs emulation {emu_err:.3e}"
                 log(
                     f"[3] flash B={b} H={heads} N={n} D={d} {dtype_name} {layout} "
-                    f"{variant}: max-abs {err:.3e} (tol {tol:.0e}); kernel {ms:.4f} ms, plain "
-                    f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms ({backend}), bound "
+                    f"{variant}: max-abs {err:.3e}{emu_note} (tol {tol:.0e}); kernel {ms:.4f} "
+                    f"ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms ({backend}), bound "
                     f"{bound_ms:.5f} ms ({bound_by}) [{card}]"
                 )
-                if dtype_name == "float32" and layout == "contiguous" and d in F32_OWN_WIDTHS:
-                    # The column-blocked kernel at a width with a kernel of
-                    # its own: the reason the choice by head_dim stays.
-                    got = _f32_blocked(q, k, v, mask)
-                    torch.cuda.synchronize()
-                    blocked_err = max(
-                        (got[i, :, :nv] - ref[i, :, :nv]).abs().max().item()
-                        for i, nv in enumerate(valid)
-                    )
-                    if not np.isfinite(blocked_err) or blocked_err > tol:
-                        raise AssertionError(
-                            f"f32 column-blocked kernel vs plain at B={b} H={heads} N={n} "
-                            f"D={d}: max-abs {blocked_err:.3e} > {tol:.0e}")
-                    blocked_ms = cuda_ms(lambda: _f32_blocked(q, k, v, mask))
-                    blocked.append({"shape": [b, heads, n, d], "max_abs_err": blocked_err,
-                                    "ms": blocked_ms, "own_kernel_ms": ms})
-                    log(f"[3] flash B={b} H={heads} N={n} D={d} float32 column-blocked: "
-                        f"max-abs {blocked_err:.3e} (tol {tol:.0e}); {blocked_ms:.4f} ms "
-                        f"against the D={d} kernel's {ms:.4f} ms "
-                        f"({blocked_ms / ms:.2f}x) [{card}]")
     ms, plain_ms, library_ms, bound_ms, bound_by = measured[
         (*FLASH_LATENCY_SHAPE, "bfloat16", "packed-v")]
     return {
@@ -720,7 +732,6 @@ def phase_flash_kernel(card: str) -> dict:
         "bound_by": bound_by,
         "library_ms": library_ms,
         "shapes": shapes,
-        "f32_column_blocked": blocked,
     }
 
 
@@ -2767,7 +2778,7 @@ def _sweep_ref(pack: Path, per_solve: int, card: str) -> dict:
 def _kernel_vs_plain_at_depth(pack: Path, ref: dict, per_solve: int, depth: int,
                               card: str) -> None:
     """(a) The bucket-448 solve of the sweeps' reference with kernel 1 and
-    without, in float32 (its SIMT variant; the kernel's latent is ``ref``'s
+    without, in float32 (its tf32x3 variant; the kernel's latent is ``ref``'s
     own ``ref_mel``) and bf16 (its wgmma variant), each held to
     MEL_TOLERANCE; each bf16 latent's distance from the float32 one says
     whether bf16's drift comes from the kernel or from bf16 arithmetic."""
@@ -2875,7 +2886,7 @@ def phase_sweeps(card: str) -> int:
     total = 0
 
     # (a) precision_drift: per bucket a float32 solve (TF32 off, kernel 1's
-    # SIMT variant) and a bf16 one (its wgmma variant).
+    # tf32x3 variant) and a bf16 one (its wgmma variant).
     want = 2 * len(P12_DRIFT_FRAMES) * per_solve
     drift, wall = _counted("(a) precision_drift",
                            lambda: precision_drift(pack, frames=P12_DRIFT_FRAMES,

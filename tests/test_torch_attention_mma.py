@@ -26,6 +26,17 @@ column blocks, and :func:`rope_pass_model` repeats the first pass of the
 fused kernel's two-pass widths (from 256): q and k rotated once, 8-column
 chunk c paired with chunk c + d/2, before the tiles.
 
+The float32 variants (``csrc/attention_tf32.cuh``, ``"tf32x3"``) take both
+products on the tensor cores in split TF32: every operand split into
+hi = TF32(x) and lo = TF32(x − hi), each product as lo·hi + hi·lo + hi·hi.
+The wrappers' plain emulations of that arithmetic
+(``flash_attention.attention_tf32x3``,
+``fused_rope_attention.fused_qkv_rope_attention_tf32x3``, on
+``ops.kernels.tf32_split``) are held here against the JAX function, both
+Pallas kernels in interpret mode and the JAX sampler (float32 max-abs
+1e-5 per call: the split leaves ~2⁻²¹ per product; the sampled latent
+within the 1e-3 of ``test_torch_slice.py``'s latent test).
+
 Also here: which variant serves which (dtype, head_dim), and that a change
 to the tile-step header rebuilds the libraries.
 """
@@ -46,7 +57,7 @@ from vietvoice_tts_tpu.ops.pallas.fused_rope_attention import (
 )
 from vietvoice_tts_tpu_torch.models import dit as tdit
 from vietvoice_tts_tpu_torch.ops.attention import NEG_INF, attention
-from vietvoice_tts_tpu_torch.ops.kernels import build
+from vietvoice_tts_tpu_torch.ops.kernels import build, round_tf32, tf32_split, tf32x3_matmul
 from vietvoice_tts_tpu_torch.ops.kernels import flash_attention as fa
 from vietvoice_tts_tpu_torch.ops.kernels import fused_rope_attention as fra
 from vietvoice_tts_tpu_torch.ops.rope import apply_rope, rope_tables
@@ -87,8 +98,10 @@ def mma_attention_model(q, k, v, mask=None):
     """[B, H, N, D] attention with the tensor-core kernels' arithmetic.
 
     For bfloat16 inputs every rounding of the kernel is repeated; for
-    float32 inputs (which the kernels serve on the SIMT pipes) the weights
-    are not rounded, so the algorithm alone is on trial. q and k are padded
+    float32 inputs the products are exact float32 and the weights are not
+    rounded, so the algorithm alone (tiles, padding, column blocks) is on
+    trial; the float32 kernels' split-TF32 products are the emulations'
+    (``attention_tf32x3``), tested below. q and k are padded
     with zero columns to the tile width (to whole 64-column atoms in column
     blocks), v to the column blocks' end; each column block walks the keys
     with logits of its own, and the columns past D are cut off."""
@@ -151,12 +164,13 @@ def rope_pass_model(qkv, cos, sin, heads):
 
 def mma_fused_model(qkv, cos, sin, mask, heads):
     """Packed-QKV RoPE attention with the tensor-core kernel's arithmetic:
-    RoPE in float32 rounded once (from 256 as the first pass does it), 1/sqrt(D)
-    on the logits, then the tiles."""
+    RoPE in float32 rounded once (as the first pass does it where the call
+    runs two: bfloat16 from 256, float32 always), 1/sqrt(D) on the logits,
+    then the tiles."""
     b, n, three_hd = qkv.shape
     d = three_hd // (3 * heads)
     q, k, v = (t.reshape(b, n, heads, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
-    if d >= fra.SCRATCH_FROM:
+    if d >= fra.SCRATCH_FROM[qkv.dtype]:
         q, k = rope_pass_model(qkv, cos, sin, heads)
     else:
         cos, sin = cos.to(qkv.dtype).float(), sin.to(qkv.dtype).float()
@@ -326,17 +340,134 @@ def test_fused_model_matches_pallas_fused_kernel(heads, d, n, dtype, tol):
     assert _valid_err(_np(out), np.asarray(ref.astype(jnp.float32)), valid, 1) < tol
 
 
+# -- the float32 variants: split TF32 -----------------------------------------
+
+
+def test_tf32_split_is_the_kernels_rounding():
+    """hi is x rounded to TF32 (low 13 bits zero, nearest, ties away from
+    zero) and lo the same of x − hi: |x − hi| ≤ 2⁻¹¹|x| and
+    |x − hi − lo| ≤ 2⁻²²|x| for normal x, each at most half a last place of
+    the subnormal pattern (2⁻¹³⁷) where a part is subnormal.
+    Zero stays zero, inf and nan pass through hi (lo is nan), and a value
+    that rounds past the largest float becomes inf, as round-to-nearest
+    makes it (its lo is then −inf)."""
+    rng = np.random.default_rng(0)
+    finite = np.concatenate([
+        rng.standard_normal(4096) * 10.0 ** rng.integers(-30, 30, 4096),
+        [0.0, -0.0, 1.0, -1.0, 1e-40, -3e-39, 2.0 ** -126, 1.5 * 2.0 ** -140, 3.4e38],
+        # Ties: the 13 dropped bits exactly 0x1000 round away from zero.
+        np.array([0x3F801000, 0xBF801000, 0x3F803000], np.uint32).view(np.float32),
+    ]).astype(np.float32)
+    x = torch.from_numpy(finite)
+    hi, lo = tf32_split(x)
+    for part in (hi, lo):
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    x64, hi64, lo64 = (t.double() for t in (x, hi, lo))
+    assert ((x64 - hi64).abs() <= torch.clamp(2.0 ** -11 * x64.abs(), min=2.0 ** -137)).all()
+    assert ((x64 - hi64 - lo64).abs() <= torch.clamp(2.0 ** -22 * x64.abs(), min=2.0 ** -137)).all()
+    bits = x.view(torch.int32)
+    assert torch.equal(hi.view(torch.int32)[-3:],
+                       torch.tensor([0x3F802000, 0xBF802000 - 2 ** 32, 0x3F804000],
+                                    dtype=torch.int32))
+    assert torch.equal(hi.view(torch.int32)[bits == 0], bits[bits == 0])
+    special = torch.tensor([float("inf"), float("-inf"), float("nan"), 3.4028235e38])
+    hi, lo = tf32_split(special)
+    assert hi[0] == math.inf and hi[1] == -math.inf and hi[2].isnan() and hi[3] == math.inf
+    assert lo[:3].isnan().all() and lo[3] == -math.inf
+    assert torch.equal(round_tf32(hi[:2]), hi[:2]) and round_tf32(hi[2:3]).isnan().all()
+
+
+def test_tf32x3_product_error_is_about_2_to_the_minus_21():
+    """The three-product emulation is within 3·2⁻²² Σ|a||b| (plus float32
+    summation) of the exact product, and a single TF32 product is not: the
+    split is what keeps float32 parity."""
+    rng = np.random.default_rng(1)
+    a = torch.from_numpy(rng.standard_normal((64, 256)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((256, 48)).astype(np.float32))
+    exact = a.double() @ b.double()
+    scale = a.double().abs() @ b.double().abs()
+    err = (tf32x3_matmul(a, b).double() - exact).abs()
+    assert (err <= (3 * 2.0 ** -22 + 256 * 2.0 ** -24) * scale).all()
+    single = (round_tf32(a) @ round_tf32(b)).double()
+    assert (single - exact).abs().max() > 100 * err.max()
+
+
+@pytest.mark.parametrize("d", [32, 64, 72, 96, 128, 256, 512])
+def test_emulated_flash_kernel_matches_pallas_flash_attention(monkeypatch, d):
+    """The float32 kernel's products (``attention_tf32x3``) against JAX's
+    Pallas flash attention in interpret mode and its XLA attention, padded
+    keys on one batch row: within 1e-5."""
+    monkeypatch.setattr(jflash, "pl", _InterpretPallas(jflash.pl))
+    valid = [98, 128]
+    (q, k, v, mask), tensors = _qkv(2, 2, 128, d, valid, "float32", seed=d)
+    args = [jnp.asarray(a) for a in (q, k, v, mask)]
+    out = _np(fa.attention_tf32x3(*tensors))
+    for ref in (jflash.flash_attention.__wrapped__(*args), jax_attention(*args)):
+        assert _valid_err(out, np.asarray(ref), valid, 2) <= TOL["float32"]
+
+
+@pytest.mark.parametrize("heads,d", [(4, 64), (2, 128), (1, 256), (1, 512)])
+def test_emulated_fused_kernel_matches_pallas_fused_kernel(heads, d):
+    """The float32 fused kernel's arithmetic (RoPE as the plain version
+    rotates it, then split TF32) against JAX's Pallas fused kernel in
+    interpret mode, padded keys on one batch row: within 1e-5."""
+    valid = [88, 128]
+    qkv, cos, sin, mask = _packed(2, 128, heads, d, valid, seed=d)
+    ref = pallas_fused(jnp.asarray(qkv), jnp.asarray(cos), jnp.asarray(sin), jnp.asarray(mask),
+                       heads=heads, interpret=True)
+    out = fra.fused_qkv_rope_attention_tf32x3(
+        *(torch.from_numpy(a) for a in (qkv, cos, sin, mask)), heads)
+    assert out.shape == (2, 128, heads * d) and out.dtype == torch.float32
+    assert _valid_err(_np(out), np.asarray(ref), valid, 1) <= TOL["float32"]
+
+
+def test_sampled_latent_with_emulated_attention_matches_jax(tiny_pack_dir, monkeypatch):
+    """``tiny_config``'s whole float32 solve with the float32 kernel's
+    arithmetic in place of the plain attention (its 4 × 16 heads take kernel
+    2's route) against the JAX package's, AdaLN gates opened so that
+    attention reaches the latent: within the 1e-3 that holds the plain path
+    (``test_torch_slice.py``)."""
+    from pathlib import Path
+
+    from conftest import tiny_config
+    from test_torch_slice import _batch, _open_gates, pack_tree, port_config  # noqa: F401
+
+    from vietvoice_tts_tpu.runtime.engine_core import EngineCore as JaxEngineCore
+    from vietvoice_tts_tpu_torch.runtime import serialization as tser
+    from vietvoice_tts_tpu_torch.runtime.engine_core import EngineCore as TorchEngineCore
+
+    pack = Path(tiny_pack_dir) / "vietvoice-tpu-v1"
+    params = _open_gates(tser.load_params(pack / "params.msgpack"))
+    vocab = len((pack / "vocab.txt").read_text().splitlines())
+    calls = []
+
+    def emulated(q, k, v, mask=None, use_kernels=False):
+        calls.append(q.shape)
+        return fa.attention_tf32x3(q, k, v, mask)
+
+    monkeypatch.setattr(tdit, "attention", emulated)
+    jcore = JaxEngineCore(
+        tiny_config(model_cache_dir=tiny_pack_dir, transfer_dtype="float32"), params, vocab)
+    tcore = TorchEngineCore(port_config(model_cache_dir=tiny_pack_dir), params, vocab)
+    wave, ref_len, ids, total_len, x0 = _batch()
+    ref = jcore.mel_latent_batch(wave, ref_len, ids, total_len, x0=x0)
+    out = tcore.mel_latent_batch(wave, ref_len, ids, total_len, x0=x0)
+    assert calls and all(shape[-1] == 16 for shape in calls)
+    assert np.abs(ref).max() > 1.0
+    np.testing.assert_allclose(out, ref, atol=1e-3, rtol=0)
+
+
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 32, "wgmma"), (torch.bfloat16, 64, "wgmma"),
     (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 96, "wgmma"),
-    (torch.bfloat16, 256, "wgmma"), (torch.float32, 32, "simt"),
-    (torch.float32, 64, "simt"), (torch.float32, 96, "simt"),
-    (torch.float32, 128, "simt"), (torch.float32, 256, "simt"),
+    (torch.bfloat16, 256, "wgmma"), (torch.float32, 32, "tf32x3"),
+    (torch.float32, 64, "tf32x3"), (torch.float32, 96, "tf32x3"),
+    (torch.float32, 128, "tf32x3"), (torch.float32, 256, "tf32x3"),
     # Refused before the padded tiles and the wide kernel; served since.
     (torch.bfloat16, 48, "wgmma"), (torch.bfloat16, 72, "wgmma"),
     (torch.bfloat16, 320, "wgmma"), (torch.bfloat16, 512, "wgmma"),
     (torch.bfloat16, 8, "wgmma"), (torch.bfloat16, 1024, "wgmma"),
-    (torch.float32, 72, "simt"), (torch.float32, 512, "simt"),
+    (torch.float32, 72, "tf32x3"), (torch.float32, 512, "tf32x3"),
 ])
 def test_flash_kernel_variant(dtype, d, want):
     assert fa.supports_shape(5, d, 437)
@@ -345,11 +476,11 @@ def test_flash_kernel_variant(dtype, d, want):
 
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
-    (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+    (torch.float32, 64, "tf32x3"), (torch.float32, 128, "tf32x3"),
     # The JAX kernel's D % 128 == 0 widths, served in two passes since.
     (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 384, "wgmma"),
     (torch.bfloat16, 512, "wgmma"), (torch.bfloat16, 1024, "wgmma"),
-    (torch.float32, 256, "simt"), (torch.float32, 512, "simt"),
+    (torch.float32, 256, "tf32x3"), (torch.float32, 512, "tf32x3"),
 ])
 def test_fused_kernel_variant(dtype, d, want):
     assert fra.supports_shape(8, d, 437)

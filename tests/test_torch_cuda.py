@@ -6,8 +6,9 @@ absent; on such a machine run it without the JAX-importing ``conftest.py``:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
 
-Tolerances: float32 max-abs 1e-4 (both sides true float32, TF32 off),
-bfloat16 max-abs 1e-2 (about one bf16 ulp of an output below 2).
+Tolerances: float32 max-abs 1e-4 (both sides true float32, TF32 off) and
+F32_EMULATION_TOL against the emulation of the float32 kernels' split-TF32
+products, bfloat16 max-abs 1e-2 (about one bf16 ulp of an output below 2).
 """
 
 import ctypes
@@ -28,10 +29,18 @@ from vietvoice_tts_tpu_torch.models.sampler import SamplerConfig, flow_matching_
 from vietvoice_tts_tpu_torch.ops.attention import attention
 from vietvoice_tts_tpu_torch.ops.kernels import flash_attention as fa
 from vietvoice_tts_tpu_torch.ops.kernels import fused_rope_attention as fra
+from vietvoice_tts_tpu_torch.ops.kernels import tf32_split, tf32x3_matmul
 from vietvoice_tts_tpu_torch.ops.kernels.build import count_sass, load_library
 from vietvoice_tts_tpu_torch.ops.rope import rope_tables
 
 pytestmark = pytest.mark.cuda
+
+# The float32 kernels against the plain emulation of their own products
+# (attention_tf32x3): the same split, summed in another order and with an
+# online softmax, so float32 summation order is all that is left between
+# them (up to 1.3e-5 at head_dim 1024 on an H100); five times inside the
+# 1e-4 against plain.
+F32_EMULATION_TOL = 2e-5
 
 
 @pytest.fixture
@@ -100,7 +109,7 @@ def test_cuda_wgmma_pv_product_single_tile(cuda_device, head_dim):
 
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_VARIANT_NAMES = {1: "wgmma", 0: "simt"}
+_VARIANT_NAMES = {1: "wgmma", 2: "tf32x3"}
 
 
 def _c_variant(module, dtype, head_dim):
@@ -135,21 +144,27 @@ def test_cuda_bf16_paths_are_on_the_tensor_cores(cuda_device):
 @pytest.mark.parametrize("b,n,heads,head_dim", [(2, 512, 8, 128), (2, 512, 16, 64),
                                                 (2, 200, 2, 256), (2, 437, 3, 384),
                                                 (2, 130, 1, 1024),
-                                                (2, 437, 8, 128)])
+                                                (2, 437, 8, 128), (2, 200, 2, 512)])
 def test_cuda_kernel_matches_plain(cuda_device, dtype, tol, b, n, heads, head_dim):
+    """Against the plain version; in float32 also against the emulation of
+    the kernel's split-TF32 products (F32_EMULATION_TOL)."""
     valid = [n - 77, n]
     qkv, cos, sin, mask = _attention_inputs(b, n, heads, head_dim, valid,
                                             cuda_device, dtype)
-    want = "wgmma" if dtype == torch.bfloat16 else "simt"
+    want = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
     assert _c_variant(fra, dtype, head_dim) == fra.kernel_variant(dtype, head_dim) == want
     before = fra.launches
     out = fra.fused_qkv_rope_attention(qkv, cos, sin, mask, heads)
     torch.cuda.synchronize()
     assert fra.launches == before + 1
     ref = fra.fused_qkv_rope_attention_reference(qkv, cos, sin, mask, heads)
+    emu = (fra.fused_qkv_rope_attention_tf32x3(qkv, cos, sin, mask, heads)
+           if dtype == torch.float32 else None)
     for row, v in enumerate(valid):
         err = (out[row, :v].float() - ref[row, :v].float()).abs().max().item()
         assert err <= tol
+        if emu is not None:
+            assert (out[row, :v] - emu[row, :v]).abs().max().item() <= F32_EMULATION_TOL
 
 
 def test_cuda_wrapper_raises_on_mixed_devices(cuda_device):
@@ -284,11 +299,14 @@ def _qkv_inputs(b, heads, n, d, valid, device, dtype, packed, seed=11):
 @pytest.mark.parametrize("b,heads,n,d", [(2, 4, 437, 32), (2, 3, 300, 64), (2, 3, 200, 96),
                                          (2, 2, 437, 8), (2, 3, 200, 72), (2, 2, 130, 200),
                                          (2, 2, 200, 264), (2, 2, 437, 520), (2, 1, 130, 1024),
-                                         (2, 2, 437, 128), (2, 2, 200, 256)])
+                                         (2, 2, 437, 128), (2, 2, 200, 256), (2, 2, 200, 320),
+                                         (2, 2, 200, 512)])
 def test_cuda_flash_kernel_matches_plain(cuda_device, dtype, tol, packed, b, heads, n, d):
+    """Against the plain version; in float32 also against the emulation of
+    the kernel's split-TF32 products (F32_EMULATION_TOL)."""
     valid = [n - 77, n]
     q, k, v, mask = _qkv_inputs(b, heads, n, d, valid, cuda_device, dtype, packed)
-    want = "wgmma" if dtype == torch.bfloat16 else "simt"
+    want = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
     assert _c_variant(fa, dtype, d) == fa.kernel_variant(dtype, d) == want
     before = fa.launches
     out = fa.flash_attention(q, k, v, mask)
@@ -298,9 +316,12 @@ def test_cuda_flash_kernel_matches_plain(cuda_device, dtype, tol, packed, b, hea
     # [B, N, H, D] memory order: merging the heads is a free reshape.
     assert out.transpose(1, 2).is_contiguous()
     ref = attention(q, k, v, mask)
+    emu = fa.attention_tf32x3(q, k, v, mask) if dtype == torch.float32 else None
     for row, nv in enumerate(valid):
         err = (out[row, :, :nv].float() - ref[row, :, :nv].float()).abs().max().item()
         assert err <= tol
+        if emu is not None:
+            assert (out[row, :, :nv] - emu[row, :, :nv]).abs().max().item() <= F32_EMULATION_TOL
 
 
 def test_cuda_flash_kernel_without_mask_and_with_a_fully_padded_row(cuda_device):
@@ -365,27 +386,48 @@ def test_cuda_bf16_head_dim_96_runs_the_padded_wgmma_tile(cuda_device):
         assert (out[row, :, :nv].float() - ref[row, :, :nv].float()).abs().max().item() <= 1e-2
 
 
-@pytest.mark.parametrize("d", [32, 64, 72, 256])
-def test_cuda_f32_column_blocked_kernel_matches_plain(cuda_device, d):
-    """The float32 column-blocked kernel, through its own entry point, at
-    widths with a float32 kernel of their own and without: the plain
-    version's result within 1e-4."""
-    b, heads, n, valid = 2, 2, 200, [123, 200]
-    q, k, v, mask = _qkv_inputs(b, heads, n, d, valid, cuda_device, torch.float32, True)
-    fn = load_library(fa.KERNEL).vv_flash_attention_f32_blocked
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    out = torch.empty((b, n, heads, d), dtype=torch.float32, device=cuda_device)
-    strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.view(torch.uint8).data_ptr(),
-             out.data_ptr(), strides, b, heads, n, d,
-             torch.cuda.current_stream(cuda_device).cuda_stream)
-    assert err == 0
-    ref = attention(q, k, v, mask)
-    got = out.transpose(1, 2)
-    for row, nv in enumerate(valid):
-        assert (got[row, :, :nv] - ref[row, :, :nv]).abs().max().item() <= 1e-4
+def test_cuda_tf32_split_is_the_emulation_bit_for_bit(cuda_device):
+    """The kernels split with ``cvt.rna.tf32.f32`` (probe 4); the emulation
+    (``ops.kernels.tf32_split``) with bit arithmetic. Both give the same
+    bits for every finite input: random values over the whole exponent
+    range, random bit patterns, ties and subnormals."""
+    rng = np.random.default_rng(4)
+    x = np.concatenate([
+        (rng.standard_normal(1 << 18) * 10.0 ** rng.integers(-40, 38, 1 << 18)).astype(np.float32),
+        rng.integers(0, 2 ** 32, 1 << 18, dtype=np.uint64).astype(np.uint32).view(np.float32),
+        (np.arange(1 << 16, dtype=np.uint32) << 13 | 0x1000).view(np.float32),
+        np.array([0.0, -0.0, 1e-40, -1e-45, 3.4028235e38], np.float32)])
+    x = x[np.isfinite(x)]
+    xt = torch.from_numpy(x).to(cuda_device)
+    hi, lo = (torch.empty(xt.shape, dtype=torch.int32, device=cuda_device) for _ in range(2))
+    _probe(4, xt, hi, lo, xt.numel())
+    want_hi, want_lo = tf32_split(torch.from_numpy(x))
+    assert torch.equal(hi.cpu(), want_hi.view(torch.int32))
+    assert torch.equal(lo.cpu(), want_lo.view(torch.int32))
+
+
+@pytest.mark.parametrize("product", ["qk", "pv"])
+def test_cuda_tf32_product_single_tile(cuda_device, product):
+    """One split-TF32 product of attention_tf32.cuh on one tile (probes 2
+    and 3): S = Q·Kᵀ of a 32-column atom, and P·V of 64 keys with V
+    transposed and its keys permuted in shared memory, P split in
+    registers. Within F32_EMULATION_TOL of the emulation of the same
+    products (sums of up to 192 terms of magnitude ~1: a few float32 ulps of
+    the result), within 1e-4 of the exact product; a product that dropped a
+    term or misread a key would miss both by 1e-3 or more."""
+    rng = np.random.default_rng(3)
+    if product == "qk":
+        a, b = (torch.from_numpy(rng.standard_normal((64, 32)).astype(np.float32))
+                .to(cuda_device) for _ in range(2))
+        b_mat, out = b.T, torch.full((64, 64), float("nan"), device=cuda_device)
+    else:
+        a = torch.from_numpy(rng.random((64, 64)).astype(np.float32)).to(cuda_device)
+        b = torch.from_numpy(rng.standard_normal((64, 32)).astype(np.float32)).to(cuda_device)
+        b_mat, out = b, torch.full((64, 32), float("nan"), device=cuda_device)
+    _probe(2 if product == "qk" else 3, a, b, out, 32)
+    exact = (a.double() @ b_mat.double()).float()
+    assert (out - tf32x3_matmul(a, b_mat)).abs().max().item() <= F32_EMULATION_TOL
+    assert (out - exact).abs().max().item() <= 1e-4
 
 
 def test_cuda_wgmma_variant_refuses_unaligned_rows(cuda_device):

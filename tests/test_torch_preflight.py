@@ -250,6 +250,9 @@ def test_attention_route(heads, head_dim, kernel):
     route = attention_route(heads, head_dim, 2048)
     assert route["kernel"] == kernel
     assert f"heads={heads} head_dim={head_dim}" in route["advice"]
+    if kernel is not None:  # both dtypes on the tensor cores, float32 in split TF32
+        assert route["variants"] == {"bfloat16": "wgmma", "float32": "tf32x3"}
+        assert "float32 on tf32x3" in route["advice"]
 
 
 @pytest.mark.parametrize("bucket", [127, 130])

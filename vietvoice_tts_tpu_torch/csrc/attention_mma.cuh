@@ -1,8 +1,8 @@
 // The tensor-core tile step shared by the bfloat16 paths of the package's
-// attention kernels (flash_attention.cu, fused_rope_attention.cu). The
-// float32 paths keep attention_tile.cuh. attention_strided.cuh runs it on
-// strided q, k, v, and holds the kernel for head widths above 256, built
-// from the pieces here.
+// attention kernels (flash_attention.cu, fused_rope_attention.cu).
+// attention_strided.cuh runs it on strided q, k, v, and holds the kernel for
+// head widths above 256, built from the pieces here; the float32 paths
+// (attention_tf32.cuh) take its PTX wrappers, mbarriers and softmax step.
 //
 // One warpgroup (128 threads, four warps) owns 64 query rows and walks the
 // key axis in tiles of BK = 64 keys. Both matrix products of a tile run on
@@ -74,6 +74,11 @@ constexpr int TILE_ROWS = 64;    // rows of every shared-memory tile (Q, K, V)
 static_assert(WG_ROWS == TILE_ROWS && BK == TILE_ROWS, "one tile shape for Q, K and V");
 constexpr float PAD_BIAS = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+
+// Batch, head and frame strides of one operand, in elements.
+struct Strides {
+  long long b, h, n;
+};
 
 // ---- PTX wrappers ---------------------------------------------------------
 

@@ -54,11 +54,8 @@
 #pragma once
 
 #include "attention_mma.cuh"
-#include "attention_tile.cuh"
 
 namespace vv_mma {
-
-using vv_attention::Strides;
 
 // ---- up to 256 columns: the tile step ---------------------------------------
 

@@ -17,8 +17,7 @@
 // (its D % 128 == 0 one head per grid cell, its D = 64 head pairs) up to the
 // width whose Q rows still fit in shared memory (attention_strided.cuh).
 //
-// Two variants, chosen from (dtype, head_dim) alone; each has a path for
-// D = 64 and 128, and one for D >= 256:
+// Two variants, chosen from (dtype, head_dim) alone:
 //
 // "wgmma": bfloat16 (the serving type). At D = 64 and 128 both products run
 //   on the tensor cores (attention_mma.cuh says how). A block is three
@@ -45,26 +44,32 @@
 //   would not be a bfloat16 number. The weights are rounded to bfloat16 for
 //   P . V, as the TPU kernel rounds them.
 //
-// "simt": float32. float32 arithmetic on the SIMT pipes (67 TFLOP/s peak),
-//   float32 tiles in shared memory, one block of 256 threads per 64 query
-//   rows (attention_tile.cuh); 1/sqrt(D) is folded into q, which float32
-//   carries, and the softmax weights stay float32.
+// "tf32x3": float32, at every width in two passes (below). The attention
+//   pass runs both products on the tensor cores in split TF32
+//   (attention_tf32.cuh: each operand split into two TF32 parts, three
+//   products, float32 accumulation and softmax). 1/sqrt(D) is applied to the
+//   float32 logits.
 //
-// D >= 256, both variants: two passes. The first (rope_kernel) rotates q and
-//   k of every head once, in float32, rounds once to the input type (the
-//   same arithmetic, so the same bits, as the producer above and the plain
-//   version) and writes them to a scratch buffer [2, B, N, H, D] that the
-//   wrapper allocates. The second is attention on the rotated q and k and on
-//   v where it lies in qkv: in bfloat16 flash_attention.cu's own
-//   (attention_strided.cuh: at D = 256 the tile step at width 256, two
-//   warpgroups of 64 query rows; above, 64-row blocks, one per column block
-//   of at most 256 output columns, Q resident, K and V streamed through a
-//   ring), in float32 attention_tile.cuh's column-blocked kernel. Why not rotate inside the tile loop as at D <= 128:
-//   RoPE pairs column c with c + D/2, so a streamed chunk of K would have to
-//   be built from two distant column ranges, and every query block (and
-//   every column block) would rotate all N keys again; a row rotated once
-//   costs one extra write and read of q and k (2 x 2 x B*N*H*D elements, in
-//   L2 at serving shapes) and none of that.
+// Two passes: bfloat16 from D = 256, float32 at every D. The first
+//   (rope_bf16_kernel, rope_f32_kernel) rotates q and k of every head once,
+//   in float32, each product and the sum rounded as separate PyTorch
+//   operations round them, then once to the input type (so the same bits as
+//   the producer above and the plain version) and writes them to a scratch
+//   buffer [2, B, N, H, D] that the wrapper allocates. The second is
+//   attention on the rotated q and k and on v where it lies in qkv:
+//   flash_attention.cu's own (bf16: attention_strided.cuh, at D = 256 the
+//   tile step at width 256, two warpgroups of 64 query rows; above, 64-row
+//   blocks, one per column block of at most 256 output columns, Q resident,
+//   K and V streamed through a ring; float32: attention_tf32.cuh). Why not
+//   rotate inside the tile loop as the bf16 kernel does at D <= 128: RoPE
+//   pairs column c with c + D/2, so a streamed chunk of K would have to be
+//   built from two distant column ranges, and every query block (and every
+//   column block) would rotate all N keys again; a row rotated once costs
+//   one extra write and read of q and k (2 x 2 x B*N*H*D elements, in L2 at
+//   serving shapes) and none of that. In float32 the split into TF32 parts
+//   happens in the attention pass's producer, so a rotating producer there
+//   would also have to split: the one pass over the scratch is what float32
+//   pays for keeping one float32 attention for both kernels.
 //
 // Design, both variants. The TPU kernel held all N keys of a head in VMEM and
 // ran a two-pass exact softmax; shared memory here holds 64 keys at a time,
@@ -80,122 +85,11 @@
 
 #include "attention_mma.cuh"
 #include "attention_strided.cuh"
-#include "attention_tile.cuh"
+#include "attention_tf32.cuh"
 
 namespace {
 
-using namespace vv_attention;
-
-// Row `row` of a head's q or k with RoPE applied, element c: computed in
-// float32 and rounded once to T, as the plain version does (so bf16 q and k
-// carry the same bits on both paths).
-template <typename T, int D>
-__device__ __forceinline__ float rope_elem(const T* __restrict__ src,
-                                           const T* __restrict__ cos_t,
-                                           const T* __restrict__ sin_t,
-                                           int row, int c) {
-  constexpr int HALF = D / 2;
-  const float x = to_f32(src[c]);
-  const float partner = to_f32(src[c < HALF ? c + HALF : c - HALF]);
-  const float rot = c < HALF ? -partner : partner;
-  const long t = (long)row * D + c;
-  return to_f32(from_f32<T>(x * to_f32(cos_t[t]) + rot * to_f32(sin_t[t])));
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-fused_rope_attention_kernel(const T* __restrict__ qkv,
-                            const T* __restrict__ cos_t,
-                            const T* __restrict__ sin_t,
-                            const uint8_t* __restrict__ mask,
-                            T* __restrict__ out,
-                            int n, int heads, float scale) {
-  constexpr int LD = Tiles<D>::LD;
-  constexpr int CPT = Tiles<D>::CPT;
-  extern __shared__ float smem[];
-  const Tiles<D> tiles(smem);
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const long row_stride = 3L * heads * D;
-  const T* base = qkv + (long)b * n * row_stride;
-  const int q_col = h * D;
-  const int k_col = (heads + h) * D;
-  const int v_col = (2 * heads + h) * D;
-
-  // 1/sqrt(D) is folded into q here, so the tile step scales logits by 1.
-  for (int idx = tid; idx < BQ * D; idx += THREADS) {
-    const int r = idx / D;
-    const int c = idx % D;
-    const int row = q0 + r;
-    float val = 0.f;
-    if (row < n) {
-      val = rope_elem<T, D>(base + (long)row * row_stride + q_col, cos_t,
-                            sin_t, row, c) * scale;
-    }
-    tiles.q[r * LD + c] = val;
-  }
-
-  RowState<D> st;
-  st.init();
-
-  for (int k0 = 0; k0 < n; k0 += BK) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int idx = tid; idx < BK * D; idx += THREADS) {
-      const int r = idx / D;
-      const int c = idx % D;
-      const int key = k0 + r;
-      float kv = 0.f, vv = 0.f;
-      if (key < n) {
-        const T* row_ptr = base + (long)key * row_stride;
-        kv = rope_elem<T, D>(row_ptr + k_col, cos_t, sin_t, key, c);
-        vv = to_f32(row_ptr[v_col + c]);
-      }
-      tiles.k[r * LD + c] = kv;
-      tiles.v[r * D + c] = vv;
-    }
-    if (tid < BK) {
-      const int key = k0 + tid;
-      tiles.bias[tid] = key >= n ? -INFINITY
-                                 : (mask[(long)b * n + key] ? 0.f : PAD_BIAS);
-    }
-    __syncthreads();
-    tile_step<D>(tiles, 1.0f, tx, ty, st);
-  }
-
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row < n) {
-      const float inv = 1.f / st.l[i];
-      T* dst = out + ((long)b * n + row) * heads * D + h * D;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c)
-        dst[tx + 16 * c] = from_f32<T>(st.acc[i][c] * inv);
-    }
-  }
-}
-
-template <typename T, int D>
-cudaError_t launch(const void* qkv, const void* cos_t, const void* sin_t,
-                   const void* mask, void* out, int b, int n, int heads,
-                   cudaStream_t stream) {
-  auto kernel = fused_rope_attention_kernel<T, D>;
-  constexpr size_t smem = Tiles<D>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((n + BQ - 1) / BQ, heads, b);
-  kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(cos_t),
-      static_cast<const T*>(sin_t), static_cast<const uint8_t*>(mask),
-      static_cast<T*>(out), n, heads, 1.0f / sqrtf((float)D));
-  return cudaGetLastError();
-}
+using vv_mma::Strides;
 
 // ---- the tensor-core variant (bfloat16) ------------------------------------
 
@@ -430,7 +324,7 @@ cudaError_t launch_mma(const void* qkv, const void* cos_t, const void* sin_t,
   return cudaGetLastError();
 }
 
-// ---- D >= 256: RoPE once, then the wide attention ---------------------------
+// ---- two passes: RoPE once, then flash_attention.cu's attention -----------
 
 constexpr int ROPE_THREADS = 256;
 
@@ -468,47 +362,49 @@ rope_bf16_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* __r
   }
 }
 
-// float32: one thread per element, as rope_elem rotates it.
+// float32: one thread per element; grid (b * n rows, column blocks of
+// heads * d, q or k), so a thread's indices are one division each.
 __global__ void __launch_bounds__(ROPE_THREADS)
 rope_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ cos_t,
                 const float* __restrict__ sin_t, float* __restrict__ rot, int b, int n,
                 int heads, int d) {
+  const int hd = heads * d;
+  const int col = blockIdx.y * ROPE_THREADS + threadIdx.x;  // h * d + c
+  if (col >= hd) return;
+  const int row = blockIdx.x;  // bb * n + i
+  const int w = blockIdx.z;    // 0: q, 1: k
+  const int c = col % d;
   const int half = d / 2;
-  const long long total = 2LL * b * n * heads * d;
-  for (long long i = (long long)blockIdx.x * ROPE_THREADS + threadIdx.x; i < total;
-       i += (long long)gridDim.x * ROPE_THREADS) {
-    const int c = (int)(i % d);
-    const long long r = i / d;
-    const int h = (int)(r % heads);
-    const long long w_row = r / heads;
-    const int row = (int)(w_row % n);
-    const long long w_b = w_row / n;
-    const int bb = (int)(w_b % b);
-    const int w = (int)(w_b / b);
-    const float* src = qkv + ((long long)bb * n + row) * 3 * heads * d + (w * heads + h) * d;
-    const float x = src[c];
-    const float partner = src[c < half ? c + half : c - half];
-    const float rotated = c < half ? -partner : partner;
-    const long long t = (long long)row * d + c;
-    rot[i] = x * cos_t[t] + rotated * sin_t[t];
-  }
+  const float* src = qkv + (long long)row * 3 * hd + w * hd + col;
+  const float x = src[0];
+  const float partner = src[c < half ? half : -half];
+  const float rotated = c < half ? -partner : partner;
+  const long long t = (long long)(row % n) * d + c;
+  // Rounded as x * cos + rotate_half(x) * sin rounds in PyTorch: each
+  // product, then the sum (nvcc would contract them into an FMA).
+  rot[((long long)w * b * n + row) * hd + col] =
+      __fadd_rn(__fmul_rn(x, cos_t[t]), __fmul_rn(rotated, sin_t[t]));
 }
 
 // Pass 1 into scratch [2, b, n, heads, d], pass 2 on it.
 template <typename T>
-cudaError_t launch_wide_fused(const void* qkv, const void* cos_t, const void* sin_t,
+cudaError_t launch_two_passes(const void* qkv, const void* cos_t, const void* sin_t,
                               const void* mask, void* out, void* scratch, int b, int n,
                               int heads, int d, cudaStream_t stream) {
-  const long long work = 2LL * b * n * heads * (sizeof(T) == 2 ? d / 16 : d);
-  const int blocks = (int)std::min<long long>((work + ROPE_THREADS - 1) / ROPE_THREADS, 132 * 16);
   const T* src = static_cast<const T*>(qkv);
   T* rot = static_cast<T*>(scratch);
-  if constexpr (sizeof(T) == 2)
+  if constexpr (sizeof(T) == 2) {
+    const long long work = 2LL * b * n * heads * (d / 16);
+    const int blocks =
+        (int)std::min<long long>((work + ROPE_THREADS - 1) / ROPE_THREADS, 132 * 16);
     rope_bf16_kernel<<<blocks, ROPE_THREADS, 0, stream>>>(
         src, static_cast<const T*>(cos_t), static_cast<const T*>(sin_t), rot, b, n, heads, d);
-  else
-    rope_f32_kernel<<<blocks, ROPE_THREADS, 0, stream>>>(
+  } else {
+    if ((long long)b * n > 0x7fffffffLL) return cudaErrorInvalidValue;
+    const dim3 grid(b * n, (heads * d + ROPE_THREADS - 1) / ROPE_THREADS, 2);
+    rope_f32_kernel<<<grid, ROPE_THREADS, 0, stream>>>(
         src, static_cast<const T*>(cos_t), static_cast<const T*>(sin_t), rot, b, n, heads, d);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long row = (long long)heads * d;  // rotated rows: [.., n, heads, d]
@@ -521,29 +417,30 @@ cudaError_t launch_wide_fused(const void* qkv, const void* cos_t, const void* si
     return mma::launch_strided(q_rot, k_rot, v, mask, out, s_rot, s_rot, s_v, b, heads, n, d,
                                stream);
   else
-    return launch_tile_wide(q_rot, k_rot, v, static_cast<const uint8_t*>(mask),
-                            static_cast<float*>(out), s_rot, s_rot, s_v, b, heads, n, d, stream);
+    return vv_tf32::launch(q_rot, k_rot, v, mask, out, s_rot, s_rot, s_v, b, heads, n, d,
+                           stream);
 }
 
 }  // namespace
 
 // The variant that serves (head_dim, dtype; 0 = float32, 1 = bfloat16):
-// 1 = "wgmma", 0 = "simt", -1 = no kernel. head_dim 64, or a multiple of
+// 1 = "wgmma", 2 = "tf32x3", -1 = no kernel. head_dim 64, or a multiple of
 // 128 up to 1024.
 extern "C" int vv_fused_rope_attention_variant(int head_dim, int dtype) {
   const bool served = head_dim == 64 ||
                       (head_dim % 128 == 0 && head_dim >= 128 && head_dim <= mma::WIDE_MAX_D);
   if ((dtype != 0 && dtype != 1) || !served) return -1;
-  return dtype;
+  return dtype == 1 ? 1 : 2;
 }
 
 // dtype: 0 = float32, 1 = bfloat16. qkv [b, n, 3*heads*head_dim], cos/sin
 // [n, head_dim] in the same dtype, mask [b, n] uint8 (nonzero = valid key),
 // out [b, n, heads*head_dim]; all contiguous on the current device. scratch:
-// for head_dim >= 256, room for [2, b, n, heads, head_dim] elements of the
-// dtype (the rotated q and k), else unused (may be null). The tensor-core
-// variant needs qkv, cos, sin and scratch on 16-byte boundaries
-// (cudaErrorMisalignedAddress otherwise).
+// in float32, and in bfloat16 for head_dim >= 256, room for
+// [2, b, n, heads, head_dim] elements of the dtype (the rotated q and k),
+// else unused (may be null). Both variants need qkv and scratch on 16-byte
+// boundaries, bfloat16 also cos and sin (cudaErrorMisalignedAddress
+// otherwise).
 // Returns a cudaError_t (0 on success).
 extern "C" int vv_fused_rope_attention(const void* qkv, const void* cos_t,
                                        const void* sin_t, const void* mask,
@@ -554,27 +451,21 @@ extern "C" int vv_fused_rope_attention(const void* qkv, const void* cos_t,
     return (int)cudaErrorInvalidValue;
   const int variant = vv_fused_rope_attention_variant(head_dim, dtype);
   if (variant < 0) return (int)cudaErrorInvalidValue;
-  const bool wide = head_dim >= 256;
-  if (wide && scratch == nullptr) return (int)cudaErrorInvalidValue;
-  if (variant == 1) {
-    // 16-byte loads: every address the kernel derives is a multiple of 8
-    // elements from these.
-    if (reinterpret_cast<uintptr_t>(qkv) % 16 != 0 ||
-        reinterpret_cast<uintptr_t>(cos_t) % 16 != 0 ||
-        reinterpret_cast<uintptr_t>(sin_t) % 16 != 0 ||
-        reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
-      return (int)cudaErrorMisalignedAddress;
-    if (wide)
-      return (int)launch_wide_fused<__nv_bfloat16>(qkv, cos_t, sin_t, mask, out, scratch, b, n,
-                                                   heads, head_dim, s);
-    if (head_dim == 128)
-      return (int)launch_mma<128>(qkv, cos_t, sin_t, mask, out, b, n, heads, s);
-    return (int)launch_mma<64>(qkv, cos_t, sin_t, mask, out, b, n, heads, s);
-  }
-  if (wide)
-    return (int)launch_wide_fused<float>(qkv, cos_t, sin_t, mask, out, scratch, b, n, heads,
+  const bool two_passes = variant == 2 || head_dim >= 256;
+  if (two_passes && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  // 16-byte loads: every address the kernels derive is a multiple of 16
+  // bytes from these.
+  auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
+  if (misaligned(qkv) || misaligned(scratch) ||
+      (variant == 1 && (misaligned(cos_t) || misaligned(sin_t))))
+    return (int)cudaErrorMisalignedAddress;
+  if (variant == 2)
+    return (int)launch_two_passes<float>(qkv, cos_t, sin_t, mask, out, scratch, b, n, heads,
                                          head_dim, s);
+  if (two_passes)
+    return (int)launch_two_passes<__nv_bfloat16>(qkv, cos_t, sin_t, mask, out, scratch, b, n,
+                                                 heads, head_dim, s);
   if (head_dim == 128)
-    return (int)launch<float, 128>(qkv, cos_t, sin_t, mask, out, b, n, heads, s);
-  return (int)launch<float, 64>(qkv, cos_t, sin_t, mask, out, b, n, heads, s);
+    return (int)launch_mma<128>(qkv, cos_t, sin_t, mask, out, b, n, heads, s);
+  return (int)launch_mma<64>(qkv, cos_t, sin_t, mask, out, b, n, heads, s);
 }

@@ -103,18 +103,24 @@ def attention_route(heads: int, head_dim: int, n_frames: int) -> dict:
     as JAX's fused kernel), 2 (the split-heads route's attention: any other
     multiple of 8 up to 1024), or None when neither kernel takes the shape —
     with ``use_kernels`` such a model raises on the card. Both kernels take
-    any frame count."""
+    any frame count. ``variants`` names the kernel's variant for each compute
+    dtype (bfloat16 ``wgmma``, float32 ``tf32x3``: split TF32 on the tensor
+    cores, the golden gate's parity mode)."""
+    import torch
+
     from ..ops.kernels import flash_attention, fused_rope_attention
 
     shape = f"heads={heads} head_dim={head_dim}"
-    if fused_rope_attention.supports_shape(heads, head_dim, n_frames):
-        return {"kernel": 1, "advice": (
-            f"{shape}: kernel 1 serves attention (csrc/fused_rope_attention.cu, "
-            "RoPE fused on the packed QKV)")}
-    if flash_attention.supports_shape(heads, head_dim, n_frames):
-        return {"kernel": 2, "advice": (
-            f"{shape}: kernel 2 serves attention on the split-heads route "
-            "(csrc/flash_attention.cu)")}
+    for kernel, module, where in (
+        (1, fused_rope_attention, "csrc/fused_rope_attention.cu, RoPE fused on the packed QKV"),
+        (2, flash_attention, "csrc/flash_attention.cu, on the split-heads route"),
+    ):
+        if module.supports_shape(heads, head_dim, n_frames):
+            variants = {name: module.kernel_variant(getattr(torch, name), head_dim)
+                        for name in ("bfloat16", "float32")}
+            return {"kernel": kernel, "variants": variants, "advice": (
+                f"{shape}: kernel {kernel} serves attention ({where}; bfloat16 on "
+                f"{variants['bfloat16']}, float32 on {variants['float32']})")}
     return {"kernel": None, "advice": (
         f"{shape}: no CUDA attention kernel takes head_dim {head_dim} (kernel 1: "
         f"{fused_rope_attention.HEAD_DIM_RULE}; kernel 2: {flash_attention.HEAD_DIM_RULE}) "

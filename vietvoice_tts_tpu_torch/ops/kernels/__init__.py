@@ -23,6 +23,34 @@ def refuse_autograd(kernel: str, *inputs: torch.Tensor) -> None:
         )
 
 
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 as the kernels round it (nearest, ties
+    away from zero, on the bit pattern: add 0x1000, clear the low 13 bits);
+    inf and nan pass through. A plain emulation for tests and
+    ``chip_smoke.py``: the main path never calls it."""
+    bits = x.float().contiguous().view(torch.int32)
+    special = (bits & 0x7F800000) == 0x7F800000
+    return torch.where(special, bits, (bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo): hi = TF32(x), lo = TF32(x − hi), the two parts the float32
+    ("tf32x3") kernels split every operand into: |x − hi| ≤ 2⁻¹¹|x| and
+    |x − hi − lo| ≤ 2⁻²²|x| for finite x."""
+    hi = round_tf32(x)
+    return hi, round_tf32(x.float() - hi)
+
+
+def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the kernels' tensor cores take it in float32: both
+    operands split, lo·hi + hi·lo + hi·hi, the small terms first, float32
+    sums. Each TF32 product is exact in float32, so only the order of the
+    sums differs from the card's."""
+    a_hi, a_lo = tf32_split(a)
+    b_hi, b_lo = tf32_split(b)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
 # The modules whose wrappers count their launches (``<module>.launches``).
 KERNELS = ("fused_rope_attention", "flash_attention")
 

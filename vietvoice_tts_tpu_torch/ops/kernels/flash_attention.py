@@ -5,12 +5,14 @@ Port of the Pallas TPU kernel ``flash_attention``
 is ``csrc/flash_attention.cu`` (its header says how it is laid out on the
 card). It takes every head_dim that is a multiple of 8 up to
 :data:`MAX_HEAD_DIM` (1024), and has two variants, chosen from the dtype
-alone (:func:`kernel_variant`): ``"wgmma"``, bfloat16, runs both products on
-Hopper's tensor cores (up to 256 at the smallest tile width of 32, 64, 128,
-192 or 256 that holds the head, its extra columns zero; above 256 in column
-blocks of at most 256 columns, ``csrc/attention_strided.cuh``) and rounds the softmax weights to bfloat16 for
-P·V; ``"simt"``, float32, computes in float32 on the SIMT pipes. This module
-holds
+alone (:func:`kernel_variant`), both on Hopper's tensor cores: ``"wgmma"``,
+bfloat16 (up to 256 at the smallest tile width of 32, 64, 128, 192 or 256
+that holds the head, its extra columns zero; above 256 in column blocks of
+at most 256 columns, ``csrc/attention_strided.cuh``), rounds the softmax
+weights to bfloat16 for P·V; ``"tf32x3"``, float32
+(``csrc/attention_tf32.cuh``), splits every operand into two TF32 parts and
+takes each product as three (lo·hi + hi·lo + hi·hi), about 2⁻²¹ relative
+per product, with float32 softmax and weights. This module holds
 
 - :func:`flash_attention`, the wrapper: it checks its inputs, launches the
   kernel for CUDA tensors (or raises) and runs the plain version for CPU
@@ -18,7 +20,10 @@ holds
 - ``launches``, a count of kernel launches, so a run can show that the main
   path went through the kernel;
 - :func:`supports_shape`, the shapes the kernel takes, and
-  :func:`kernel_variant`, which variant serves a dtype and head_dim.
+  :func:`kernel_variant`, which variant serves a dtype and head_dim;
+- :func:`attention_tf32x3`, a plain emulation of the float32 variant's
+  products (tests and ``chip_smoke.py`` hold the kernel against it; the
+  main path never calls it).
 
 The plain PyTorch version of the same function is
 ``ops/attention.py:attention``; ``attention(..., use_kernels=True)`` is how
@@ -32,8 +37,8 @@ import functools
 
 import torch
 
-from ..attention import attention
-from . import MAX_HEAD_DIM, refuse_autograd
+from ..attention import NEG_INF, attention
+from . import MAX_HEAD_DIM, refuse_autograd, tf32x3_matmul
 from .build import load_library
 
 KERNEL = "flash_attention"
@@ -55,13 +60,35 @@ def supports_shape(heads: int, head_dim: int, n: int) -> bool:
 
 def kernel_variant(dtype: torch.dtype, head_dim: int) -> str:
     """The variant of the CUDA kernel that serves this dtype and head_dim:
-    ``"wgmma"`` (tensor cores) or ``"simt"`` (float32 pipes). The choice the C
-    entry point makes, restated here so that tests without a card hold it."""
+    ``"wgmma"`` (bfloat16) or ``"tf32x3"`` (float32 in split TF32), both on
+    the tensor cores. The choice the C entry point makes, restated here so
+    that tests without a card hold it."""
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"the attention kernel takes float32 or bfloat16, got {dtype}")
     if not supports_shape(1, head_dim, 1):
         raise ValueError(f"the attention kernel takes head_dim {HEAD_DIM_RULE}, got {head_dim}")
-    return "wgmma" if dtype == torch.bfloat16 else "simt"
+    return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+
+
+def attention_tf32x3(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """[B, H, N, D] attention with the float32 kernel's products: q·kᵀ and
+    p·v each as three TF32 products (:func:`tf32x3_matmul`), p the
+    unnormalized weights exp(s − max), the output divided by their sum.
+    Tests and ``chip_smoke.py`` hold the kernel against it; the main path
+    never calls it."""
+    scale = q.shape[-1] ** -0.5
+    logits = tf32x3_matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if mask is not None:
+        bias = torch.zeros(mask.shape, dtype=torch.float32, device=mask.device)
+        logits = logits + bias.masked_fill(~mask.bool(), NEG_INF)[:, None, None, :]
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    out = tf32x3_matmul(p, v.float()) / p.sum(-1, keepdim=True)
+    return out.to(q.dtype)
 
 
 def _check_inputs(q, k, v, mask) -> None:
@@ -117,12 +144,10 @@ def flash_attention(
                 f"{name} must have unit stride along head_dim, got strides {t.stride()}"
             )
         strides.extend(t.stride()[:3])
-        # The tensor-core variant copies 16 bytes at a time.
-        if kernel_variant(q.dtype, d) == "wgmma" and (
-            t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])
-        ):
+        # Both variants copy 16 bytes at a time.
+        if t.data_ptr() % 16 or any(st % (16 // t.element_size()) for st in t.stride()[:3]):
             raise ValueError(
-                f"{name} must have 16-byte-aligned rows for bfloat16 at head_dim {d}: "
+                f"{name} must have 16-byte-aligned rows: "
                 f"data_ptr % 16 = {t.data_ptr() % 16}, strides {t.stride()}"
             )
     if q.device.type != "cuda":

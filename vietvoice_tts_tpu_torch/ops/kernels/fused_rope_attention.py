@@ -5,13 +5,15 @@ Port of the Pallas TPU kernel ``fused_qkv_rope_attention``
 itself is ``csrc/fused_rope_attention.cu`` (its header says how it is laid
 out on the card). It takes head_dim 64 and every multiple of 128 up to
 :data:`MAX_HEAD_DIM` (1024): the TPU kernel's widths, up to the one whose
-query rows still fit in shared memory. From 256 it runs in two passes: q and
-k rotated once into a scratch buffer this wrapper allocates, then
-``flash_attention``'s own code on them and on v where it lies. It has two
-variants, chosen from the dtype alone
-(:func:`kernel_variant`): ``"wgmma"``, bfloat16 (the serving type), runs both
-products on Hopper's tensor cores and rounds the softmax weights to bfloat16
-for P·V; ``"simt"``, float32, computes on the SIMT pipes. This module holds
+query rows still fit in shared memory. It has two variants, chosen from the
+dtype alone (:func:`kernel_variant`), both on Hopper's tensor cores:
+``"wgmma"``, bfloat16 (the serving type), rounds the softmax weights to
+bfloat16 for P·V; ``"tf32x3"``, float32, takes every product in split TF32
+(three TF32 products of two-part operands). In bfloat16 from 256, and in
+float32 at every width, a call runs in two passes (:data:`SCRATCH_FROM`): q
+and k rotated once into a scratch buffer this wrapper allocates, then
+``flash_attention``'s own code on them and on v where it lies. This module
+holds
 
 - :func:`fused_qkv_rope_attention`, the wrapper: it checks its inputs,
   launches the kernel for CUDA tensors (or raises) and runs the plain
@@ -22,7 +24,10 @@ for P·V; ``"simt"``, float32, computes on the SIMT pipes. This module holds
 - ``launches``, a count of kernel launches, so a run can show that the main
   path went through the kernel;
 - :func:`supports_shape`, the shapes the kernel takes, and
-  :func:`kernel_variant`, which variant serves a dtype and head_dim.
+  :func:`kernel_variant`, which variant serves a dtype and head_dim;
+- :func:`fused_qkv_rope_attention_tf32x3`, a plain emulation of the float32
+  variant's products (tests and ``chip_smoke.py`` hold the kernel against
+  it; the main path never calls it).
 """
 
 from __future__ import annotations
@@ -36,10 +41,14 @@ from ..attention import attention
 from ..rope import apply_rope
 from . import MAX_HEAD_DIM, refuse_autograd
 from .build import load_library
+from .flash_attention import attention_tf32x3
 
 KERNEL = "fused_rope_attention"
 HEAD_DIM_RULE = f"64 or a multiple of 128 up to {MAX_HEAD_DIM}"
-SCRATCH_FROM = 256  # head_dim from which a call rotates q and k into scratch first
+# head_dim from which a call rotates q and k into scratch first, by dtype:
+# bfloat16 rotates inside its tile loop at 64 and 128; float32 always runs
+# the rotation pass, then the split-TF32 attention.
+SCRATCH_FROM = {torch.bfloat16: 256, torch.float32: 0}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Kernel launches by this process; callers may reset it to 0. A CUDA graph's
@@ -62,15 +71,16 @@ def supports_shape(heads: int, head_dim: int, n: int) -> bool:
 
 def kernel_variant(dtype: torch.dtype, head_dim: int) -> str:
     """The variant of the CUDA kernel that serves this dtype and head_dim:
-    ``"wgmma"`` (tensor cores) or ``"simt"`` (float32 pipes). The choice the C
-    entry point makes, restated here so that tests without a card hold it."""
+    ``"wgmma"`` (bfloat16) or ``"tf32x3"`` (float32 in split TF32), both on
+    the tensor cores. The choice the C entry point makes, restated here so
+    that tests without a card hold it."""
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"the fused attention kernel takes float32 or bfloat16, got {dtype}")
     if not supports_shape(1, head_dim, 1):
         raise ValueError(
             f"the fused attention kernel takes head_dim {HEAD_DIM_RULE}, got {head_dim}"
         )
-    return "wgmma" if dtype == torch.bfloat16 else "simt"
+    return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def fused_qkv_rope_attention_reference(
@@ -86,6 +96,27 @@ def fused_qkv_rope_attention_reference(
     with the tables cast to the compute dtype, then reference attention
     (float32 logits and softmax). RoPE is computed in float32 and rounded
     once to the compute dtype, as the CUDA kernel does."""
+    return _rope_attention(qkv, cos, sin, mask, heads, attention)
+
+
+def fused_qkv_rope_attention_tf32x3(
+    qkv: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    mask: torch.Tensor | None,
+    heads: int,
+) -> torch.Tensor:
+    """:func:`fused_qkv_rope_attention_reference` with the float32 kernel's
+    products (``flash_attention.attention_tf32x3``) in place of the plain
+    attention: RoPE as the plain version rotates, then split TF32. Tests
+    and ``chip_smoke.py`` hold the kernel against it; the main path never
+    calls it."""
+    return _rope_attention(qkv, cos, sin, mask, heads, attention_tf32x3)
+
+
+def _rope_attention(qkv, cos, sin, mask, heads: int, attend) -> torch.Tensor:
+    """Split the packed heads, rotate q and k (float32, rounded once to the
+    compute dtype), ``attend(q, k, v, mask)``, merge the heads."""
     b, n, three_hd = qkv.shape
     d = three_hd // (3 * heads)
     q, k, v = (
@@ -94,7 +125,7 @@ def fused_qkv_rope_attention_reference(
     cos = cos.to(qkv.dtype).float()
     sin = sin.to(qkv.dtype).float()
     q, k = (apply_rope(t.float(), cos, sin).to(qkv.dtype) for t in (q, k))
-    out = attention(q, k, v, mask)
+    out = attend(q, k, v, mask)
     return out.transpose(1, 2).reshape(b, n, heads * d)
 
 
@@ -161,10 +192,10 @@ def fused_qkv_rope_attention(
     sin = sin.to(qkv.dtype).contiguous()
     mask = mask.contiguous().view(torch.uint8)
     out = torch.empty((b, n, heads * d), dtype=qkv.dtype, device=qkv.device)
-    # The rotated q and k of the two-pass widths.
+    # The rotated q and k of the two-pass calls.
     scratch = (
         torch.empty((2, b, n, heads, d), dtype=qkv.dtype, device=qkv.device)
-        if d >= SCRATCH_FROM else None
+        if d >= SCRATCH_FROM[qkv.dtype] else None
     )
     entry = _kernel_entry()
     with torch.cuda.device(qkv.device):
