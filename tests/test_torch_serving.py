@@ -743,7 +743,9 @@ def test_batch_grid_and_retry_constants_match_jax():
         jbatcher.RETRY_BASE_S, jbatcher.RETRY_MAX_S)
     ours = {f.name for f in dataclasses.fields(tbatcher.ChunkJob)}
     theirs = {f.name for f in dataclasses.fields(jbatcher.ChunkJob)}
-    assert theirs - ours == {"trimmed"} and ours <= theirs  # no trimmed fetch
+    # No trimmed fetch; the port's own fields are its request-scoped spans'.
+    assert theirs - ours == {"trimmed"}
+    assert ours - theirs == {"request_id", "batch_id", "span_ns"}
     assert [f.name for f in dataclasses.fields(tbatcher.BatcherStats)] == [
         f.name for f in dataclasses.fields(jbatcher.BatcherStats)]
 

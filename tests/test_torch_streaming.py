@@ -163,7 +163,7 @@ def test_a_valid_head_cap_splits_the_head_as_jax_plans_it(engine, tiny_engine, m
                         or planned[-1])
     # The plan is what is checked: no chunk is synthesized.
     monkeypatch.setattr(engine, "_iter_chunk_waves",
-                        lambda plans, ref: iter([np.zeros(len(plans), np.int16)]))
+                        lambda plans, ref, request_id=None: iter([np.zeros(len(plans), np.int16)]))
     assert len(list(engine.synthesize_streaming(LONG, first_chunk_duration=2.0))) == 1
     theirs = tiny_engine._plan_chunks(ref, ref_text, LONG, first_chunk_cap=2.0)
     assert [dataclasses.asdict(p) for p in planned[0]] == [dataclasses.asdict(p) for p in theirs]

@@ -11,6 +11,11 @@ The engine runs on ``settings.DEVICE`` (``VIETVOICE_DEVICE``, default
 request and the server's start. With ``settings.MICRO_BATCHING`` (default
 on) the engine gets its micro-batcher as it loads, so concurrent requests
 share device batches.
+
+While the engine's timer records spans (``StageTimer.record_spans``), a
+synthesis request is a ``request`` span from the route's call to its WAV
+bytes, and its id rides the request's context into the worker thread
+(``anyio.to_thread`` copies it), where the engine's chunk jobs take it.
 """
 
 from __future__ import annotations
@@ -77,6 +82,16 @@ def reset_engine() -> None:
     _engine = None
 
 
+def _recording_timer():
+    """The loaded engine's timer while it records spans, else None (a
+    request that loads the engine records none)."""
+    api = _engine
+    engine = api._engine if api is not None else None
+    if engine is not None and engine.engine_core.timer.recording:
+        return engine.engine_core.timer
+    return None
+
+
 def _voice(engine: TTSApi, gender, group, area, emotion) -> dict:
     cfg = engine.config
     return dict(
@@ -97,6 +112,8 @@ async def synthesize_async(
     sample_iteration: int | None,
 ) -> tuple[bytes, int, float]:
     """Synthesize on a worker thread → (wav_bytes, sample_rate, duration_s)."""
+    timer = _recording_timer()
+    request = timer.open_request() if timer is not None else None
     try:
 
         def _call():
@@ -117,6 +134,9 @@ async def synthesize_async(
     except Exception as e:  # noqa: BLE001 — handler converts to 500
         log.error("Error during synthesis: %s", e)
         raise
+    finally:
+        if request is not None:
+            timer.close_request(request)
 
 
 async def synthesize_stream_async(

@@ -28,7 +28,7 @@ import numpy as np
 from ..config import ModelConfig, check_first_chunk_duration
 from ..runtime.engine_core import EngineCore
 from ..runtime.session import ModelSessionManager
-from ..utils.logging import get_logger
+from ..utils.logging import REQUEST_ID, get_logger
 from .audio import AudioProcessor
 from .text import TextProcessor
 
@@ -308,7 +308,8 @@ class TTSEngine:
         hop = self.config.hop_length
         return row[plan.ref_len * hop : plan.total_len * hop]
 
-    def _submit_chunks(self, plans: List[ChunkPlan], ref_audio_f32: np.ndarray):
+    def _submit_chunks(self, plans: List[ChunkPlan], ref_audio_f32: np.ndarray,
+                       request_id: Optional[int] = None):
         """Hand every chunk to the shared micro-batcher → [(plan, job)]."""
         from ..serving.batcher import ChunkJob
 
@@ -322,6 +323,7 @@ class TTSEngine:
                 total_len=p.total_len,
                 text_ids=ids,
                 seed=p.index,
+                request_id=request_id,
             )
             self.batcher.submit(job)
             jobs.append((p, job))
@@ -333,7 +335,7 @@ class TTSEngine:
         """Route chunks through the shared micro-batcher (serving mode)."""
         return [
             self._slice_output(p, j.future.result())
-            for p, j in self._submit_chunks(plans, ref_audio_f32)
+            for p, j in self._submit_chunks(plans, ref_audio_f32, REQUEST_ID.get())
         ]
 
     def _run_chunks(
@@ -372,7 +374,8 @@ class TTSEngine:
 
         return [results[i] for i in sorted(results)]
 
-    def _iter_chunk_waves(self, plans: List[ChunkPlan], ref_audio_f32: np.ndarray):
+    def _iter_chunk_waves(self, plans: List[ChunkPlan], ref_audio_f32: np.ndarray,
+                          request_id: Optional[int] = None):
         """Yield each chunk's trimmed int16 wave in order, as it completes.
 
         Batcher mode submits everything up front: the batcher's dispatcher
@@ -394,7 +397,7 @@ class TTSEngine:
         is copied out behind it on the same stream, before the next replay
         of the shape overwrites it."""
         if self.batcher is not None:
-            for p, j in self._submit_chunks(plans, ref_audio_f32):
+            for p, j in self._submit_chunks(plans, ref_audio_f32, request_id):
                 yield self._slice_output(p, j.future.result())
             return
         inflight: deque = deque()
@@ -446,18 +449,25 @@ class TTSEngine:
         sooner on long texts, at the cost of one more cross-fade boundary;
         the chunking then differs from the blocking output's. A cap must be
         in (0, ``max_chunk_duration``]: another raises ``ValueError`` here,
-        before anything is planned or yielded."""
+        before anything is planned or yielded.
+
+        While the core's timer records spans, the stream's chunk jobs carry
+        the request id in scope at this call (the REST stream route makes it
+        on the event loop), else a new one."""
         cap = (
             first_chunk_duration
             if first_chunk_duration is not None
             else self.config.streaming_first_chunk_duration
         )
         check_first_chunk_duration(cap, self.config.max_chunk_duration)
+        timer = self.engine_core.timer
+        request_id = (REQUEST_ID.get() or timer.new_request_id()) if timer.recording else None
         return self._stream(
             text, (gender, group, area, emotion, sample_iteration, reference_audio,
-                   reference_text), speed, cap)
+                   reference_text), speed, cap, request_id)
 
-    def _stream(self, text: str, voice: tuple, speed: Optional[float], cap: Optional[float]):
+    def _stream(self, text: str, voice: tuple, speed: Optional[float], cap: Optional[float],
+                request_id: Optional[int]):
         ref_audio, ref_text = self.model_session_manager.select_sample(*voice)
         ref_int16 = self._load_ref(ref_audio)
         ref_f32 = ref_int16.astype(np.float32) / 32768.0
@@ -465,7 +475,7 @@ class TTSEngine:
             ref_f32, ref_text, text, speed=speed, first_chunk_cap=cap
         )
         yield from self.audio_processor.stream_with_crossfade(
-            self._iter_chunk_waves(plans, ref_f32),
+            self._iter_chunk_waves(plans, ref_f32, request_id),
             self.config.cross_fade_duration,
             self.config.sample_rate,
         )
@@ -487,12 +497,24 @@ class TTSEngine:
     ) -> Tuple[np.ndarray, float]:
         """Synthesize speech → (int16 waveform, generation_time_seconds).
 
-        ``speed`` overrides ``config.speed`` per request."""
+        ``speed`` overrides ``config.speed`` per request. While the core's
+        timer records spans and no request is in scope (a REST route opens
+        its own), the call is a ``request`` span with a new id."""
+        timer = self.engine_core.timer
+        request = timer.open_request() if timer.recording else None
+        try:
+            return self._synthesize(
+                text, (gender, group, area, emotion, sample_iteration, reference_audio,
+                       reference_text), output_path, speed)
+        finally:
+            if request is not None:
+                timer.close_request(request)
+
+    def _synthesize(self, text: str, voice: tuple, output_path: Optional[str],
+                    speed: Optional[float]) -> Tuple[np.ndarray, float]:
         start_time = time.time()
 
-        ref_audio, ref_text = self.model_session_manager.select_sample(
-            gender, group, area, emotion, sample_iteration, reference_audio, reference_text
-        )
+        ref_audio, ref_text = self.model_session_manager.select_sample(*voice)
 
         try:
             ref_int16 = self._load_ref(ref_audio)

@@ -467,8 +467,9 @@ class EngineCore:
         allocation did not wait for queued device work on an H100 (PyTorch
         2.11, CUDA 12.8; ``examples/torch_bench_trace.py``); taken before
         the batch, it stays off the batch's path on a stack where it does
-        wait."""
-        with self.timer.stage("chunk_dispatch"):
+        wait. While the timer records spans, the dispatch is also kept as
+        the span ``batch.dispatch``, with the batcher's batch id in scope."""
+        with self.timer.stage("chunk_dispatch", span="batch.dispatch"):
             host, done = self._pcm_batch(wave, ref_len, text_ids, total_len, seed)
 
         def fetch() -> np.ndarray:

@@ -25,10 +25,20 @@ The scheduling is the JAX batcher's. What differs on a CUDA card:
 - ``_pending`` is guarded by a lock and futures are resolved only while not
   done: a client thread that loses the race with ``shutdown`` fails the
   queued jobs itself (``submit``), concurrently with the dispatcher.
+
+While the core's timer records spans (``utils/logging.py``), each attempt
+of a job leaves two: ``job.queue``, from its submission (or a retry's
+re-queue) to the start of the ``_run_batch`` that carries it, and
+``job.device``, from the end of that batch's dispatch to its fetch
+returning (or failing) in the fetcher: the card running the batch and the
+one queued ahead of it. Both carry the job's request id and the batch id,
+which is in scope on the dispatcher thread for the core's
+``batch.dispatch`` span.
 """
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 import time
@@ -41,7 +51,7 @@ import numpy as np
 
 from ..config import pad_batch_size
 from ..runtime.engine_core import EngineCore
-from ..utils.logging import get_logger
+from ..utils.logging import BATCH_ID, StageTimer, get_logger
 
 log = get_logger("batcher")
 
@@ -59,6 +69,11 @@ class ChunkJob:
     future: Future = field(default_factory=Future)
     attempts: int = 0  # failed dispatch/fetch attempts so far
     ts: float = field(default_factory=time.monotonic)  # arrival (aging guard)
+    request_id: Optional[int] = None  # the request's, while spans are recorded
+    # Spans only: the batch of the latest attempt, and the time.time_ns() at
+    # which the job's open span (job.queue, then job.device) began.
+    batch_id: Optional[int] = None
+    span_ns: int = 0
 
 
 # Retry backoff: attempt k waits RETRY_BASE_S * 2**(k-1), capped. Keeps a
@@ -111,6 +126,10 @@ class MicroBatcher:
         pipeline_depth: int = 1,
     ):
         self.core = engine_core
+        # The core's timer keeps the spans; a core without one (a test's
+        # stand-in) gets a timer of the batcher's own, off until switched on.
+        self.timer = getattr(engine_core, "timer", None) or StageTimer()
+        self._batch_ids = itertools.count(1)
         self.max_batch = max_batch or engine_core.config.max_batch_size
         self.pipeline_depth = pipeline_depth
         self.max_wait_s = max_wait_ms / 1000.0
@@ -174,6 +193,8 @@ class MicroBatcher:
     def submit(self, job: ChunkJob) -> Future:
         if not self._running:
             raise RuntimeError("MicroBatcher is shut down")
+        if self.timer.recording:
+            job.span_ns = time.time_ns()
         self._queue.put(job)
         if not self._running:
             # Raced a concurrent shutdown past its queue drain: the job just
@@ -347,6 +368,7 @@ class MicroBatcher:
         return batch
 
     def _run_batch(self, jobs: list[ChunkJob]) -> None:
+        token = self._open_batch(jobs) if self.timer.recording else None
         bucket = jobs[0].bucket
         # Pad the row count up to the batch grid (config.batch_grid) so the
         # device sees a few repeating shapes per bucket: the graphs that
@@ -369,11 +391,37 @@ class MicroBatcher:
             total_len[row] = j.total_len
             text_ids[row] = j.text_ids
             seeds[row] = j.seed
-        fetch = self.core.synthesize_batch_async(
-            wave, ref_len, text_ids, total_len, seed=seeds
-        )
+        try:
+            fetch = self.core.synthesize_batch_async(
+                wave, ref_len, text_ids, total_len, seed=seeds
+            )
+        finally:
+            if token is not None:
+                BATCH_ID.reset(token)
+        if token is not None:
+            dispatched = time.time_ns()
+            for j in jobs:
+                j.span_ns = dispatched
         self._inflight.put((fetch, jobs))
         log.debug("dispatched batch: bucket=%d size=%d padded=%d", bucket, b, padded)
+
+    def _open_batch(self, jobs: list[ChunkJob]):
+        """Spans: end each job's ``job.queue`` here, at the start of its
+        batch, and put a new batch id in scope → the id's context token."""
+        start, batch_id = time.time_ns(), next(self._batch_ids)
+        for j in jobs:
+            if j.span_ns:
+                self.timer.span("job.queue", j.span_ns, start, j.request_id, batch_id)
+            j.batch_id, j.span_ns = batch_id, 0
+        return BATCH_ID.set(batch_id)
+
+    def _close_device_spans(self, jobs: list[ChunkJob]) -> None:
+        """Spans: end each job's ``job.device`` at its batch's fetch."""
+        end = time.time_ns()
+        for j in jobs:
+            if j.span_ns:
+                self.timer.span("job.device", j.span_ns, end, j.request_id, j.batch_id)
+                j.span_ns = 0
 
     def _requeue_later(self, job: ChunkJob, delay: float) -> None:
         """Re-queue a failed job after a backoff delay (daemon timer thread).
@@ -383,6 +431,8 @@ class MicroBatcher:
 
         def fire() -> None:
             if self._running:
+                if self.timer.recording:
+                    job.span_ns = time.time_ns()
                 self._queue.put(job)
             else:
                 _resolve(job.future, exc=RuntimeError("MicroBatcher is shut down"))
@@ -427,8 +477,12 @@ class MicroBatcher:
             try:
                 out = fetch()
             except Exception as e:  # noqa: BLE001 — retry, then propagate
+                if self.timer.recording:
+                    self._close_device_spans(jobs)
                 self._fail_or_retry(jobs, e)
                 continue
+            if self.timer.recording:
+                self._close_device_spans(jobs)
             self._stats.batches += 1
             self._stats.jobs += len(jobs)
             self._stats.padded_rows += out.shape[0] - len(jobs)
