@@ -12,11 +12,11 @@ check raises):
 
 1. The card's name and power limit, as ``nvidia-smi`` reports them.
 2. Build every CUDA source of the package from ``csrc/``, all at once (the
-   two attention kernels and ``graph_fill.cu``, the fill kernel that stands
-   in for the captured graphs' memset nodes); then count the ``HGMMA``
-   instructions (the machine code of ``wgmma``) in each attention library's
-   SASS, which must not be zero: the bfloat16 paths are on the tensor
-   cores.
+   two attention kernels, ``adaln_norm.cu`` and ``graph_fill.cu``, the fill
+   kernel that stands in for the captured graphs' memset nodes); then count
+   the ``HGMMA`` instructions (the machine code of ``wgmma``) in each
+   attention library's SASS, which must not be zero: the bfloat16 paths are
+   on the tensor cores.
 3. Each kernel against its plain PyTorch version on the card, at the shapes
    the serving path gives it (KERNEL_CASES, FLASH_CASES: the head widths
    each kernel took before and those from 256 for kernel 1, 72, 96 and 320
@@ -34,7 +34,12 @@ check raises):
    backend PyTorch picks for it), a yardstick that the package never calls.
    The kernels' record lists, shape by shape (``shapes``), every float32
    case and the bfloat16 widths beyond kernel 1's 64 and 128 and kernel
-   2's 32, 64 and 128.
+   2's 32, 64 and 128. Then the AdaLN kernel (``csrc/adaln_norm.cu``, the
+   DiT block's gated residual and modulated LayerNorm) against its plain
+   version, the eager chain, at ADALN_SHAPES (the benchmark cell's 1,408
+   rows × 1024 in bfloat16 first) in its forms (b), (a), (c) and the
+   final float32 norm: h' bit for bit, u within one ulp (two for float32
+   outputs) of the largest |u|; kernel, plain and byte bound times.
 4. Whole-path parity at full width, for both attention routes of the DiT:
    the default model (8 heads × 128, the fused RoPE kernel) and the same
    widths split 32 × 32 (the split-heads route, ``flash_attention``). The
@@ -44,9 +49,11 @@ check raises):
    by 0), in float32 (max-abs ≤ 1e-2, the BASELINE mel gate) and in the
    serving bfloat16 (bounded by its measured noise floor, see
    MEL_TOLERANCE), with exactly 22 × 31 = 682 launches of the route's kernel
-   per solve and none of the other. Then the sampler caches at 32 × 32, each
-   against its own plain-path run: the CFG cache (682 launches) and the
-   deep-block cache (16 × 22 + 15 × 7 = 457). The kernel's solve is one
+   per solve and none of the other, and 31 × (1 + 2 × 22) = 1,395 of the
+   AdaLN kernel (none on the plain path). Then the sampler caches at 32 ×
+   32, each against its own plain-path run: the CFG cache (682 launches)
+   and the deep-block cache (16 × 22 + 15 × 7 = 457; AdaLN 16 × 46 + 15 ×
+   16 = 976, a split forward's segments each ending in a residual alone). The kernel's solve is one
    graph replay; the plain path runs eagerly (a comparison), and on both
    routes the kernel's replay is also held against the eager program
    bodies of the same core (LATENT_TOLERANCE).
@@ -236,6 +243,10 @@ serving request of phases 5-11 and 15, every solve of phase 12 and every
 batch of phase 13
 (counters set to 0 just before, read just after; in phase 11 each rank
 counts its own, in 13 (a) the bench's process, and the record sums them).
+Every such check counts the AdaLN kernel beside the attention kernels:
+1 + 2·depth launches a forward wherever the attention kernels run (1,395 a
+chunk batch at 22 layers), also on phase 11's ring, where neither attention
+kernel does, and none in training or on the plain path (``_forwards``).
 On a core without a mesh every chunk batch is one CUDA-graph replay: the
 wrappers count at capture, the capture takes its counts back, and every
 replay adds the launches it recorded; phases 4-10, 12 and 13 check that
@@ -446,22 +457,26 @@ def phase_build() -> None:
 
     names = ("fused_rope_attention", "flash_attention")
     # graph_fill.cu holds the fill kernel that stands in for the captured
-    # graphs' memset nodes (runtime/graphs.py); no tensor-core path.
+    # graphs' memset nodes (runtime/graphs.py), adaln_norm.cu the DiT block's
+    # gated residual and modulated norm; neither has a tensor-core path.
+    others = ("adaln_norm", "graph_fill")
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as pool:
-        list(pool.map(load_library, (*names, "graph_fill")))
-    log(f"[2] built {', '.join(names)}, graph_fill in {time.perf_counter() - t0:.2f} s")
-    for name in names:
-        hgmma = count_sass(name, "HGMMA")
+    with concurrent.futures.ThreadPoolExecutor(len(names) + len(others)) as pool:
+        list(pool.map(load_library, (*names, *others)))
+    log(f"[2] built {', '.join(names + others)} in {time.perf_counter() - t0:.2f} s")
+    for name in (*names, "adaln_norm"):
         report = build_report(name)
         spills = sum(
             int(m) for m in re.findall(r"(\d+) bytes spill (?:stores|loads)", report))
         registers = [int(m) for m in re.findall(r"Used (\d+) registers", report)]
-        log(f"[2] {name}: {hgmma} HGMMA instructions in the SASS; ptxas: "
-            f"{len(registers)} kernels, at most {max(registers, default=0)} registers, "
-            f"{spills} bytes of spills")
-        if hgmma == 0:
-            raise AssertionError(f"{name}: no HGMMA in the SASS, wgmma path missing")
+        sass = ""
+        if name in names:
+            hgmma = count_sass(name, "HGMMA")
+            if hgmma == 0:
+                raise AssertionError(f"{name}: no HGMMA in the SASS, wgmma path missing")
+            sass = f"{hgmma} HGMMA instructions in the SASS; "
+        log(f"[2] {name}: {sass}ptxas: {len(registers)} kernels, at most "
+            f"{max(registers, default=0)} registers, {spills} bytes of spills")
 
 
 def bound(tensors, flops: float, dtype_name: str) -> tuple[float, str]:
@@ -735,6 +750,114 @@ def phase_flash_kernel(card: str) -> dict:
     }
 
 
+# Phase-3 shapes of the AdaLN kernel, (B, N, dim, dtype): the benchmark cell's
+# chunk (F5 v1 Base, CFG-doubled batch 1 at bucket 704: 1,408 rows × 1024),
+# first; F5 Small's width at the same rows; the default model's batch-1
+# latency shape in float32; batch 32 × 512 (64 rows of the doubled batch);
+# width 1152 (phase 15's pack); one row.
+ADALN_SHAPES = [
+    (2, 704, 1024, "bfloat16"),
+    (2, 704, 768, "bfloat16"),
+    (2, 448, 1024, "float32"),
+    (64, 512, 1024, "bfloat16"),
+    (2, 448, 1152, "bfloat16"),
+    (1, 1, 1024, "bfloat16"),
+]
+
+
+# phase_adaln's gate on u, kernel against the plain chain, in ulps of u's
+# type at the largest |u|. A bfloat16 u rounds once from the same float32
+# value the chain rounds, whose statistics differ in their summation order
+# only: on an H100 it read 0.03-0.42. A float32 u (the float32 model, and
+# the final norm) shows that order's difference unrounded: 1.0-1.67.
+ADALN_ULPS = {"bfloat16": 1.0, "float32": 2.0}
+
+
+def phase_adaln(card: str) -> dict:
+    """The AdaLN kernel against its plain version (the eager chain) at
+    ADALN_SHAPES, in each of its forms: (b) residual then norm, the one a
+    block launches twice, (a) norm only, (c) residual only (where a
+    deep-cache segment stops) and the final float32 norm; h' bit for bit,
+    u within ADALN_ULPS of the plain chain's (the full gates are in
+    tests/test_torch_adanorm.py). Times each against its byte bound (h and
+    x read, h' and u written once, and the modulation rows) and against
+    the plain chain; returns the record, times of (b) at the cell's shape
+    and the largest |u| error over all shapes as ``max_abs_err``."""
+    import torch
+
+    from vietvoice_tts_tpu_torch.ops.kernels import adaln_norm as an
+
+    dev = torch.device("cuda")
+    measured = {}
+    shapes = []
+    worst = 0.0
+    for b, n, dim, dtype_name in ADALN_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        rng = np.random.default_rng(b * 7919 + n * 31 + dim)
+        h, x = (torch.from_numpy(rng.standard_normal((b, n, dim)).astype(np.float32))
+                .to(dev, dtype) for _ in range(2))
+        # One block's six rows of the hoisted modulations [depth, 1, 6·dim].
+        mods = torch.from_numpy(rng.normal(0.0, 0.3, (22, 1, 6 * dim)).astype(np.float32))
+        sh, sc, g = mods.to(dev)[5].chunk(6, dim=-1)[:3]
+        threads, vpt = an.launch_shape(dim, dtype)
+        label = f"B={b} N={n} dim={dim} {dtype_name} ({threads} threads × {vpt} vectors)"
+        forms = {
+            "(b)": (lambda: an.adaln_norm(h, g, x, sc, sh),
+                    lambda: an.adaln_norm_reference(h, g, x, sc, sh)),
+            "(a)": (lambda: an.adaln_norm(h, scale=sc, shift=sh),
+                    lambda: an.adaln_norm_reference(h, scale=sc, shift=sh)),
+            "(c)": (lambda: an.adaln_norm(h, g, x), lambda: an.adaln_norm_reference(h, g, x)),
+            "final": (lambda: an.adaln_norm(h, g, x, sc, sh, out_dtype=torch.float32),
+                      lambda: an.adaln_norm_reference(h, g, x, sc, sh,
+                                                      out_dtype=torch.float32)),
+        }
+        for form, (kernel, plain) in forms.items():
+            (h_k, u_k), (h_p, u_p) = kernel(), plain()
+            torch.cuda.synchronize()
+            if not torch.equal(h_k, h_p) or (u_k is None) != (u_p is None):
+                raise AssertionError(f"adaln {form} at {label}: h' equal "
+                                     f"{torch.equal(h_k, h_p)}, u {u_k is None} / {u_p is None}")
+            err = ulps = None
+            if u_p is not None:
+                # In units of one ulp of the largest |u|.
+                err = (u_k.float() - u_p.float()).abs().max().item()
+                ulps = err / (torch.finfo(u_p.dtype).eps * u_p.float().abs().max().item())
+                gate = ADALN_ULPS[str(u_p.dtype).removeprefix("torch.")]
+                if not ulps <= gate:
+                    raise AssertionError(f"adaln {form} at {label}: u off by {ulps:.2f} ulps, "
+                                         f"gate {gate}")
+                worst = max(worst, err)
+            ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+            moved = {"(a)": (h, u_k, sc, sh), "(c)": (h, x, h_k, g)}.get(
+                form, (h, x, h_k, u_k, g, sc, sh))
+            bound_ms, bound_by = bound(moved, 0.0, dtype_name)
+            measured[(b, n, dim, dtype_name, form)] = (ms, plain_ms, bound_ms, bound_by)
+            shapes.append({"shape": [b, n, dim], "dtype": dtype_name, "form": form,
+                           "threads": threads, "vectors_per_thread": vpt,
+                           "max_abs_err": err, "max_u_ulps": ulps, "ms": ms,
+                           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by})
+            u_note = "no u" if ulps is None else f"u within {ulps:.2f} ulps ({err:.3e})"
+            log(f"[3] adaln {form} {label}: h' bit for bit, {u_note}; "
+                f"kernel {ms:.4f} ms ({100 * bound_ms / ms:.1f}% of the bound), plain "
+                f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}) [{card}]")
+            del h_k, u_k, h_p, u_p
+    ms, plain_ms, bound_ms, bound_by = measured[(*ADALN_SHAPES[0], "(b)")]
+    return {
+        "name": "adaln_norm",
+        "route": "cuda",
+        "source": "vietvoice_tts_tpu_torch/csrc/adaln_norm.cu",
+        "replaces": None,  # no TPU kernel: XLA fuses the chain there
+        "launches": None,
+        "max_abs_err": worst,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call does the gated residual and norm
+        "shapes": shapes,
+    }
+
+
 def _perturbed_gates(params: dict, seed: int = 1) -> dict:
     """Copy of the pack tree with blocks.ada and final_ada drawn N(0, ADA_STD²)."""
     rng = np.random.default_rng(seed)
@@ -755,11 +878,12 @@ def _perturbed_gates(params: dict, seed: int = 1) -> dict:
 def _reset_launches() -> None:
     """Set the kernels' launch counters and the graphs' capture and replay
     counters to 0."""
+    from vietvoice_tts_tpu_torch.ops.kernels import adaln_norm as an
     from vietvoice_tts_tpu_torch.ops.kernels import flash_attention as fa
     from vietvoice_tts_tpu_torch.ops.kernels import fused_rope_attention as fra
     from vietvoice_tts_tpu_torch.runtime import graphs
 
-    fra.launches = fa.launches = 0
+    fra.launches = fa.launches = an.launches = 0
     graphs.captures = graphs.replays = 0
 
 
@@ -803,20 +927,65 @@ def _pcm_gap(tag: str, label: str, got, want, card: str) -> None:
 
 
 def _launches() -> dict:
+    """Each kernel's launches since ``_reset_launches``."""
+    from vietvoice_tts_tpu_torch.ops.kernels import adaln_norm as an
     from vietvoice_tts_tpu_torch.ops.kernels import flash_attention as fa
     from vietvoice_tts_tpu_torch.ops.kernels import fused_rope_attention as fra
 
-    return {"fused_rope": fra.launches, "flash": fa.launches}
+    return {"fused_rope": fra.launches, "flash": fa.launches, "adaln": an.launches}
+
+
+# What ``_launches`` reads where no kernel may run: training, the plain path.
+NO_LAUNCHES = {"fused_rope": 0, "flash": 0, "adaln": 0}
+
+
+def _forwards(depth: int, n: int, route: str | None = "fused_rope") -> dict:
+    """What ``_launches`` reads after ``n`` DiT forwards of ``depth`` blocks
+    on the kernel path: ``depth`` launches a forward of ``route``'s attention
+    kernel (None: attention by neither kernel, as on the ring), and 1 +
+    2·depth of the AdaLN kernel's (the opening norm, then a residual and norm
+    after each of a block's two products, the final norm in the last)."""
+    want = dict(NO_LAUNCHES, adaln=n * (1 + 2 * depth))
+    if route is not None:
+        want[route] = n * depth
+    return want
+
+
+def _solves(cfg, n: int, route: str | None = "fused_rope") -> dict:
+    """What ``_launches`` reads after ``n`` solves (chunk batches, streamed
+    chunks) of ``cfg``: a full forward at each of its ``nfe_step - 1``
+    evaluations (a CFG-cached cond-only evaluation is one forward too)."""
+    return _forwards(cfg.dit_depth, n * (cfg.nfe_step - 1), route)
+
+
+def _deep_cache_launches(depth: int, steps: int, r: int, j: int,
+                         route: str = "fused_rope") -> dict:
+    """What ``_launches`` reads after one solve with the deep-block cache
+    at interval ``r`` over ``j`` shallow blocks: at r = 1 every step is a
+    whole forward; else each forward is split after block j, and each
+    segment that stops there ends in a residual alone, one AdaLN launch
+    more: 2 + 2·depth on the ⌈steps/r⌉ recording steps, 2 + 2·j on the
+    others."""
+    if r == 1:
+        return _forwards(depth, steps, route)
+    full = -(-steps // r)
+    return dict(NO_LAUNCHES, **{route: _deep_cache_evals(depth, steps, r, j),
+                                "adaln": full * (2 + 2 * depth) + (steps - full) * (2 + 2 * j)})
+
+
+def _sum_launches(*parts: dict) -> dict:
+    return {k: sum(p[k] for p in parts) for k in NO_LAUNCHES}
 
 
 def _kernel_vs_plain_latent(label, cfg, params, vocab_size, args, x0, total_len,
-                            route, want_launches, card, against_eager=False,
+                            want_launches, card, against_eager=False,
                             dtypes=tuple(MEL_TOLERANCE), tag="[4]") -> None:
-    """One config's mel latent with the kernel (one graph replay, the main
+    """One config's mel latent with the kernels (one graph replay, the main
     path) and with the plain path (eager, a comparison), in each of
-    ``dtypes``; ``route`` names the kernel that must do all the launches.
-    With ``against_eager`` the kernel's replay is also held against the
-    eager program bodies of the same core (LATENT_TOLERANCE)."""
+    ``dtypes``; the kernels must launch as ``want_launches`` says, and none
+    on the plain path. With ``against_eager`` the kernels' replay is also
+    held against the eager program bodies of the same core
+    (LATENT_TOLERANCE)."""
     import torch
 
     from vietvoice_tts_tpu_torch.runtime.engine_core import EngineCore
@@ -836,7 +1005,7 @@ def _kernel_vs_plain_latent(label, cfg, params, vocab_size, args, x0, total_len,
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             got = _launches()
-            want = {k: (want_launches if use_kernels and k == route else 0) for k in got}
+            want = want_launches if use_kernels else NO_LAUNCHES
             if got != want:
                 raise AssertionError(
                     f"{label} {dtype} use_kernels={use_kernels}: launches {got}, want {want}"
@@ -895,25 +1064,23 @@ def phase_whole_path(cfg, cfg32, card: str) -> None:
     log(f"[4] pack ready in {time.perf_counter() - t0:.1f} s (ada std {ADA_STD})")
     args, x0, total_len = _latent_inputs(mgr, cfg)
 
-    depth, evals = cfg.dit_depth, cfg.nfe_step - 1
     shallow = 7
-    full_evals = -(-evals // 2)  # every second eval, the first included
     runs = [
         # The default model: the fused RoPE kernel in every block and step.
-        ("8x128", cfg, "fused_rope", depth * evals, True),
+        ("8x128", cfg, _solves(cfg, 1), True),
         # The same widths split 32 × 32: the split-heads route.
-        ("32x32", cfg32, "flash", depth * evals, True),
+        ("32x32", cfg32, _solves(cfg32, 1, "flash"), True),
         # CFG cache: doubled and cond-only evals alike launch once per block.
         ("32x32 uncond_interval=2",
-         dataclasses.replace(cfg32, nfe_uncond_interval=2), "flash", depth * evals, False),
+         dataclasses.replace(cfg32, nfe_uncond_interval=2), _solves(cfg32, 1, "flash"), False),
         # Deep-block cache: full depth every second eval, 7 blocks between.
         ("32x32 deep_cache_interval=2",
          dataclasses.replace(cfg32, nfe_deep_cache_interval=2, nfe_deep_cache_blocks=shallow),
-         "flash", full_evals * depth + (evals - full_evals) * shallow, False),
+         _deep_cache_launches(cfg.dit_depth, cfg.nfe_step - 1, 2, shallow, "flash"), False),
     ]
-    for label, run_cfg, route, want, against_eager in runs:
+    for label, run_cfg, want, against_eager in runs:
         _kernel_vs_plain_latent(label, run_cfg, params, mgr.vocab_size, args, x0,
-                                total_len, route, want, card, against_eager)
+                                total_len, want, card, against_eager)
 
 
 # Phase 15: the head shapes the DiT serves since both attention kernels take
@@ -936,7 +1103,8 @@ HEAD_SHAPES = [
 def phase_head_shapes(cfg, card: str, smi: str) -> dict:
     """Each of HEAD_SHAPES through ``TTSApi``: one short request (int16 PCM
     with sound in it, every chunk batch one graph replay, 682 launches of
-    the route's kernel a batch and none of the other), then the whole-path
+    the route's kernel a batch, none of the other and 1,395 of the AdaLN
+    kernel), then the whole-path
     mel latent, kernel against plain, gates opened, in bfloat16 (and in
     float32 where marked) within MEL_TOLERANCE. Returns each kernel's
     launches over the requests."""
@@ -944,8 +1112,7 @@ def phase_head_shapes(cfg, card: str, smi: str) -> dict:
 
     from vietvoice_tts_tpu_torch import TTSApi
 
-    per_batch = cfg.dit_depth * (cfg.nfe_step - 1)
-    launches = {"fused_rope": 0, "flash": 0}
+    launches = dict(NO_LAUNCHES)
     packs = {}
     for label, dim, heads, route, with_f32 in HEAD_SHAPES:
         t0 = time.perf_counter()
@@ -959,12 +1126,11 @@ def phase_head_shapes(cfg, card: str, smi: str) -> dict:
         _timed_request(f"{label} short ({n_chunks} chunk(s), {n_batches} batch(es))", run_cfg,
                        smi, lambda: api.synthesize(SHORT_TEXT), tag="[15]")
         got = _launches()
-        want = {k: (n_batches * per_batch if k == route else 0) for k in got}
+        want = _solves(run_cfg, n_batches, route)
         if got != want:
             raise AssertionError(f"{label} serving launched {got}, want {want}")
         _check_replays(f"{label} serving", n_batches)
-        for k in launches:
-            launches[k] += got[k]
+        launches = _sum_launches(launches, got)
         if dim not in packs:
             mgr = engine.model_session_manager
             packs[dim] = (_perturbed_gates(mgr.params), mgr.vocab_size,
@@ -974,7 +1140,8 @@ def phase_head_shapes(cfg, card: str, smi: str) -> dict:
         torch.cuda.empty_cache()
         params, vocab_size, (args, x0, total_len) = packs[dim]
         _kernel_vs_plain_latent(
-            label, run_cfg, params, vocab_size, args, x0, total_len, route, per_batch, card,
+            label, run_cfg, params, vocab_size, args, x0, total_len,
+            _solves(run_cfg, 1, route), card,
             dtypes=("float32", "bfloat16") if with_f32 else ("bfloat16",), tag="[15]")
         log(f"[15] {label}: {dim} = {heads} x {dim // heads}, {route}, "
             f"{time.perf_counter() - t0:.1f} s [{smi}]")
@@ -1047,13 +1214,12 @@ def phase_serving(cfg, cfg32, smi: str) -> tuple[dict, dict]:
          {"reference_audio": str(clone_wav), "reference_text": CLONE_REFERENCE_TEXT}),
         ("long", long_text, {}),
     ]
-    per_batch = cfg.dit_depth * (cfg.nfe_step - 1)
     api = TTSApi(cfg)
     engine = api.engine  # loads the pack before the counted run
-    expected = 0
+    solves = 0
     for name, text, voice in requests:
         n_batches, n_chunks = _chunk_batches(engine, text, **voice)
-        expected += n_batches * per_batch
+        solves += n_batches
         log(f"[5] {name}: {n_chunks} chunk(s) in {n_batches} batch(es)")
         if name == "long":
             if not (n_chunks >= 2 and n_batches == 1):
@@ -1062,7 +1228,7 @@ def phase_serving(cfg, cfg32, smi: str) -> tuple[dict, dict]:
                     "want ≥ 2 chunks in one batch"
                 )
             # Streaming (run twice) dispatches every chunk as a batch of one.
-            expected += 2 * n_chunks * per_batch
+            solves += 2 * n_chunks
 
     _reset_launches()  # count the main path's run only
     outputs = {
@@ -1101,11 +1267,11 @@ def phase_serving(cfg, cfg32, smi: str) -> tuple[dict, dict]:
             raise AssertionError(f"{name} differs from blocking beyond STREAM_TOLERANCE")
 
     launches = _launches()
-    if launches != {"fused_rope": expected, "flash": 0}:
-        raise AssertionError(f"8x128 serving launched {launches}, want {expected} fused_rope")
-    _check_replays("8x128 serving", expected // per_batch)
-    log(f"[5] 8x128 serving: {expected} fused_rope launches ({per_batch} per chunk "
-        "batch and per streamed chunk), short request deterministic")
+    if launches != _solves(cfg, solves):
+        raise AssertionError(f"8x128 serving launched {launches}, want {_solves(cfg, solves)}")
+    _check_replays("8x128 serving", solves)
+    log(f"[5] 8x128 serving: launches {launches} ({_solves(cfg, 1)} per chunk batch and "
+        "per streamed chunk), short request deterministic")
     api.cleanup()
 
     # The same pack served with 32 heads of 32: the split-heads route.
@@ -1114,12 +1280,12 @@ def phase_serving(cfg, cfg32, smi: str) -> tuple[dict, dict]:
     _reset_launches()
     _timed_request("short 32x32", cfg32, smi, lambda: api32.synthesize(short))
     launches32 = _launches()
-    if launches32 != {"fused_rope": 0, "flash": n_batches * per_batch}:
+    if launches32 != _solves(cfg32, n_batches, "flash"):
         raise AssertionError(f"32x32 serving launched {launches32}")
     _check_replays("32x32 serving", n_batches)
-    log(f"[5] 32x32 serving: {launches32['flash']} flash launches")
+    log(f"[5] 32x32 serving: launches {launches32}")
     api32.cleanup()
-    return {"fused_rope": launches["fused_rope"], "flash": launches32["flash"]}, outputs
+    return _sum_launches(launches, launches32), outputs
 
 
 # Candidates for phase 6's short requests: those that plan to SHORT_TEXT's
@@ -1156,9 +1322,9 @@ def _check_against_solo(name: str, wave, solo) -> None:
         raise AssertionError(f"{name} through the batcher differs from solo beyond STREAM_TOLERANCE")
 
 
-def _concurrent_round(label, api, texts, smi, route, per_batch):
+def _concurrent_round(label, api, texts, smi, route):
     """Release one client thread per text together; check and log the round.
-    Returns ({text: waveform}, wall seconds, launches of ``route``,
+    Returns ({text: waveform}, wall seconds, the kernels' launches,
     (batches, jobs))."""
     import torch
 
@@ -1198,10 +1364,9 @@ def _concurrent_round(label, api, texts, smi, route, per_batch):
     padded = stats.padded_rows - before.padded_rows
     if stats.failures or stats.retries:
         raise AssertionError(f"{label}: {stats.failures} failures, {stats.retries} retries")
-    other = "flash" if route == "fused_rope" else "fused_rope"
-    if got[route] != batches * per_batch or got[other] != 0:
+    if got != _solves(api.config, batches, route):
         raise AssertionError(
-            f"{label}: launches {got}, want {batches} batches × {per_batch} of {route}")
+            f"{label}: launches {got}, want {_solves(api.config, batches, route)}")
     _check_replays(label, batches)
     secs = sum(w.size for w in waves.values()) / api.config.sample_rate
     log(f"[6] {label}: {len(texts)} requests in {wall * 1e3:.1f} ms wall, {secs:.2f} s audio, "
@@ -1209,15 +1374,15 @@ def _concurrent_round(label, api, texts, smi, route, per_batch):
         f"{jobs / batches:.2f}, {padded} padded rows; slowest request "
         f"{max(walls.values()) * 1e3:.1f} ms, median {statistics.median(walls.values()) * 1e3:.1f} ms; "
         f"cond cache +{core.cond_cache_hits - hits0} hits +{core.cond_cache_misses - misses0} "
-        f"misses; {got[route]} {route} launches [{smi}]")
-    return waves, wall, got[route], (batches, jobs)
+        f"misses; launches {got} [{smi}]")
+    return waves, wall, got, (batches, jobs)
 
 
-def _depth_round(engine, text, n_jobs, depth, smi) -> tuple[int, list]:
+def _depth_round(engine, text, n_jobs, depth, smi) -> tuple[dict, list]:
     """Submit ``n_jobs`` copies of one short request at once to a fresh
     batcher of the given depth; log the time to the first resolved future and
-    to the last. Returns the kernel launches it made and the times (s) from
-    submit to each resolved future, sorted."""
+    to the last. Returns the kernels' launches and the times (s) from submit
+    to each resolved future, sorted."""
     from vietvoice_tts_tpu_torch.serving.batcher import MicroBatcher
 
     ref_audio, ref_text = engine.model_session_manager.select_sample()
@@ -1242,7 +1407,7 @@ def _depth_round(engine, text, n_jobs, depth, smi) -> tuple[int, list]:
         log(f"[6] pipeline_depth={depth}: {n_jobs} jobs submitted at once, {stats.batches} "
             f"batches; first future after {times[0] * 1e3:.1f} ms, median "
             f"{statistics.median(times) * 1e3:.1f} ms, last {times[-1] * 1e3:.1f} ms [{smi}]")
-        return _launches()["fused_rope"], times
+        return _launches(), times
     finally:
         engine.batcher.shutdown()
         engine.batcher = None
@@ -1257,7 +1422,6 @@ def phase_batcher(cfg, cfg32, smi: str, solo: dict) -> dict:
     from vietvoice_tts_tpu_torch import TTSApi
     from vietvoice_tts_tpu_torch.serving.batcher import ChunkJob
 
-    per_batch = cfg.dit_depth * (cfg.nfe_step - 1)
     api = TTSApi(cfg)
     engine = api.engine
     ref_audio, ref_text = engine.model_session_manager.select_sample()
@@ -1281,7 +1445,7 @@ def phase_batcher(cfg, cfg32, smi: str, solo: dict) -> dict:
     log(f"[6] 8x128: batcher attached (max_batch {batcher.max_batch}, depth "
         f"{batcher.pipeline_depth}), warmup of bucket {short_bucket} × {cfg.batch_grid()} and "
         f"bucket {long_bucket} × (1, 2, 3) in {time.perf_counter() - t0:.1f} s")
-    total = 0
+    total = dict(NO_LAUNCHES)
 
     # (a) Eight short requests at once, twice: the second round finds every
     # buffer of its shapes taken already and must not be slower for it. With
@@ -1294,13 +1458,12 @@ def phase_batcher(cfg, cfg32, smi: str, solo: dict) -> dict:
     # keep the default window.
     window_s, batcher.max_wait_s = batcher.max_wait_s, 1.0
     try:
-        first = _concurrent_round("(a) eight short", api, texts, smi, "fused_rope", per_batch)
-        again = _concurrent_round("(a) eight short, again", api, texts, smi, "fused_rope",
-                                  per_batch)
+        first = _concurrent_round("(a) eight short", api, texts, smi, "fused_rope")
+        again = _concurrent_round("(a) eight short, again", api, texts, smi, "fused_rope")
     finally:
         batcher.max_wait_s = window_s
     for waves, wall, launched, (batches, jobs) in (first, again):
-        total += launched
+        total = _sum_launches(total, launched)
         if (batches, jobs) != (1, len(texts)):
             raise AssertionError(f"(a): {jobs} jobs in {batches} batches, want one batch of "
                                  f"{len(texts)}")
@@ -1314,8 +1477,8 @@ def phase_batcher(cfg, cfg32, smi: str, solo: dict) -> dict:
 
     # (b) The long text (three chunks) with two short requests.
     waves, _, launched, _ = _concurrent_round(
-        "(b) long + two short", api, [LONG_TEXT, *texts[:2]], smi, "fused_rope", per_batch)
-    total += launched
+        "(b) long + two short", api, [LONG_TEXT, *texts[:2]], smi, "fused_rope")
+    total = _sum_launches(total, launched)
     _check_against_solo("(b) long", waves[LONG_TEXT], solo["long"])
     _check_against_solo("(b) short", waves[SHORT_TEXT], solo["short"])
 
@@ -1331,10 +1494,10 @@ def phase_batcher(cfg, cfg32, smi: str, solo: dict) -> dict:
     wall = time.perf_counter() - t0
     got = _launches()
     batches = batcher.stats.batches - before
-    if len(pieces) < 2 or got != {"fused_rope": batches * per_batch, "flash": 0}:
+    if len(pieces) < 2 or got != _solves(cfg, batches):
         raise AssertionError(f"(c): {len(pieces)} pieces, {batches} batches, launches {got}")
     _check_replays("(c) long streamed", batches)
-    total += got["fused_rope"]
+    total = _sum_launches(total, got)
     log(f"[6] (c) long streamed through the batcher: {len(pieces)} pieces, first after "
         f"{first_piece * 1e3:.1f} ms, all after {wall * 1e3:.1f} ms, {batches} batch(es) [{smi}]")
     _check_against_solo("(c) long streamed", np.concatenate(pieces), solo["long"])
@@ -1360,9 +1523,9 @@ def phase_batcher(cfg, cfg32, smi: str, solo: dict) -> dict:
     depth_times = {1: [], 2: []}
     for depth in (1, 2, 2, 1):
         launched, times = _depth_round(engine, SHORT_TEXT, 24, depth, smi)
-        if launched != 3 * per_batch:
-            raise AssertionError(f"depth {depth}: {launched} launches, want {3 * per_batch}")
-        total += launched
+        if launched != _solves(cfg, 3):
+            raise AssertionError(f"depth {depth}: launches {launched}, want {_solves(cfg, 3)}")
+        total = _sum_launches(total, launched)
         depth_times[depth].append(times)
     engine.cleanup()
     legs = {"first": 0, "median": None, "last": -1}
@@ -1378,17 +1541,17 @@ def phase_batcher(cfg, cfg32, smi: str, solo: dict) -> dict:
     api32.engine.enable_micro_batching()
     api32.engine.warmup(batches=(1, 2, 3, 4), buckets=(short_bucket,))
     waves, _, launched32, (batches, jobs) = _concurrent_round(
-        "32x32 four short", api32, texts[:4], smi, "flash", per_batch)
+        "32x32 four short", api32, texts[:4], smi, "flash")
     if not jobs / batches > 1:
         raise AssertionError(f"32x32: mean batch size {jobs / batches} is not above 1")
     api32.cleanup()
-    return {"fused_rope": total, "flash": launched32}
+    return _sum_launches(total, launched32)
 
 
 def phase_cli(cfg, smi: str) -> None:
     """The command line as a user starts it: no ``--device``, so on the card."""
     clone_wav = WORK / "clone_voice.wav"
-    per_batch = cfg.dit_depth * (cfg.nfe_step - 1)
+    want = _solves(cfg, 1)
     runs = [
         ("default voice", SHORT_TEXT, []),
         ("cloned voice", CLONE_TEXT,
@@ -1406,12 +1569,15 @@ def phase_cli(cfg, smi: str) -> None:
         if proc.returncode != 0:
             raise AssertionError(f"CLI ({name}) exited {proc.returncode}:\n{proc.stderr[-2000:]}")
         device = re.search(r"^Device: (\w+)", proc.stdout, re.M)
-        launched = re.search(r"fused_qkv_rope_attention=(\d+), flash_attention=(\d+)", proc.stdout)
+        launched = re.search(
+            r"fused_qkv_rope_attention=(\d+), flash_attention=(\d+), adaln_norm=(\d+)",
+            proc.stdout)
         took = re.search(r"Generation took ([\d.]+)s", proc.stdout)
         graphed = re.search(r"Chunk graphs: (\d+) captured, (\d+) replays", proc.stdout)
         if not (device and launched and took and graphed):
             raise AssertionError(f"CLI ({name}) printed no device report:\n{proc.stdout[-2000:]}")
-        if device.group(1) != "cuda" or launched.groups() != (str(per_batch), "0"):
+        if device.group(1) != "cuda" or launched.groups() != tuple(
+                str(want[k]) for k in ("fused_rope", "flash", "adaln")):
             raise AssertionError(f"CLI ({name}): device {device.group(1)}, launches {launched.groups()}")
         if graphed.groups() != ("1", "1"):
             raise AssertionError(f"CLI ({name}): graphs {graphed.group(0)}, want one of each")
@@ -1421,7 +1587,8 @@ def phase_cli(cfg, smi: str) -> None:
         if fmt != (cfg.sample_rate, 1, 2) or pcm.size == 0 or not np.any(pcm):
             raise AssertionError(f"CLI ({name}): WAV {fmt}, {pcm.size} samples")
         log(f"[7] CLI, {name}: exit 0 in {wall:.1f} s wall (generation {took.group(1)} s), "
-            f"device cuda, {launched.group(1)} fused_rope launches in one graph replay, "
+            f"device cuda, {launched.group(1)} fused_rope and {launched.group(3)} AdaLN "
+            f"launches in one graph replay, "
             f"{pcm.size / cfg.sample_rate:.2f} s of 24 kHz mono int16 [{smi}]")
 
 
@@ -1443,9 +1610,9 @@ async def _stream_pieces(app, path: str, body: dict) -> tuple[int, list[bytes]]:
     return status[0], pieces
 
 
-def phase_rest(cfg, smi: str) -> int:
+def phase_rest(cfg, smi: str) -> dict:
     """The REST app in process, its engine on the card behind the batcher;
-    returns the fused kernel's launches."""
+    returns the kernels' launches."""
     os.environ["VIETVOICE_ALLOW_SYNTHETIC"] = "1"
     os.environ["VIETVOICE_TPU_CACHE"] = str(WORK / "models")
     os.environ["TMP_DIR_PATH"] = str(WORK / "rest_tmp")
@@ -1455,7 +1622,6 @@ def phase_rest(cfg, smi: str) -> int:
     from vietvoice_tts_tpu_torch.api import tts_engine as te
     from vietvoice_tts_tpu_torch.api.testing import AsyncTestClient
 
-    per_batch = cfg.dit_depth * (cfg.nfe_step - 1)
     client = AsyncTestClient(app_module.app)
     texts = SHORT_CANDIDATES[:4]
 
@@ -1501,14 +1667,15 @@ def phase_rest(cfg, smi: str) -> int:
     finally:
         te.reset_engine()
     got = _launches()
-    if got != {"fused_rope": batcher["batches"] * per_batch, "flash": 0}:
+    if got != _solves(cfg, batcher["batches"]):
         raise AssertionError(f"REST: launches {got} for {batcher['batches']} batches")
     _check_replays("REST", batcher["batches"])
     log(f"[8] REST in process: health cuda / 1 device; four /synthesize posts gathered in "
         f"{wall * 1e3:.1f} ms (engine load and first use included); /synthesize/stream "
         f"{n_pieces} pieces; batcher {batcher}; cond cache {stats['cond_cache']}; "
-        f"{stats['hbm']['bytes_in_use'] / 2**30:.2f} GiB in use; /metrics parses [{smi}]")
-    return got["fused_rope"]
+        f"{stats['hbm']['bytes_in_use'] / 2**30:.2f} GiB in use; /metrics parses; "
+        f"launches {got} [{smi}]")
+    return got
 
 
 def _train_run(label, model_cfg, train_cfg, run, smi) -> dict:
@@ -1526,7 +1693,7 @@ def _train_run(label, model_cfg, train_cfg, run, smi) -> dict:
     summary = train(model_cfg, train_cfg, run)
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    if _launches() != {"fused_rope": 0, "flash": 0}:
+    if _launches() != NO_LAUNCHES:
         raise AssertionError(f"{label}: training launched kernels {_launches()}")
     losses = summary["losses"]
     if summary["final_step"] != run.steps or not losses or not np.all(np.isfinite(losses)):
@@ -1704,7 +1871,7 @@ def _train_graph_against_eager(tree: dict, vocab_size: int, smi: str) -> None:
                 first_ms=ms[0], peak=torch.cuda.max_memory_allocated(),
                 device_ms=sum(e.self_device_time_total for e in kernels) / 1e3 / traced,
                 device_launches=sum(e.count for e in kernels) / traced)
-            if _launches() != {"fused_rope": 0, "flash": 0}:
+            if _launches() != NO_LAUNCHES:
                 raise AssertionError(f"(e) {dtype} {mode}: kernels launched {_launches()}")
         g, e = runs["graph"], runs["eager"]
         graphs = g["step"].graphs
@@ -1768,9 +1935,9 @@ def _leaf(tree, path):
 P9_CLI_DEPTH = 2  # DiT layers of the pack 9 (d)'s training command line trains
 
 
-def phase_training(cfg, smi: str) -> int:
+def phase_training(cfg, smi: str) -> dict:
     """The trainer at full width on a copy of the seeded pack; returns the
-    fused kernel's launches of the request served from the trained pack."""
+    kernels' launches of the request served from the trained pack."""
     import shutil
 
     import torch
@@ -1831,18 +1998,17 @@ def phase_training(cfg, smi: str) -> int:
     t0 = time.perf_counter()
     api = TTSApi(tcfg)
     n_batches, _ = _chunk_batches(api.engine, SHORT_TEXT)
-    per_batch = cfg.dit_depth * (cfg.nfe_step - 1)
     _reset_launches()
     wave, _ = api.synthesize(SHORT_TEXT)
     got = _launches()
     api.cleanup()
     _check_wave("(c) trained pack", wave)
-    if got != {"fused_rope": n_batches * per_batch, "flash": 0}:
+    if got != _solves(cfg, n_batches):
         raise AssertionError(f"(c) serving the trained pack launched {got}")
     _check_replays("(c) trained pack", n_batches)
     log(f"[9] (c) TTSApi on the trained pack: {wave.size / cfg.sample_rate:.2f} s of int16, "
-        f"peak |sample| {int(np.abs(wave.astype(np.int32)).max())}, {got['fused_rope']} "
-        f"fused_rope launches; {time.perf_counter() - t0:.1f} s wall with the pack's load "
+        f"peak |sample| {int(np.abs(wave.astype(np.int32)).max())}, launches {got}; "
+        f"{time.perf_counter() - t0:.1f} s wall with the pack's load "
         f"[{smi}]")
 
     # (d) The entry point as a user starts it: no --device, so on the card;
@@ -1872,7 +2038,7 @@ def phase_training(cfg, smi: str) -> int:
 
     # (e) Graph replays against eager steps.
     _train_graph_against_eager(_perturbed_gates({"dit": before}, seed=12)["dit"], vocab, smi)
-    return got["fused_rope"]
+    return got
 
 
 # 6 of LONG_TEXT's sentences plan to three chunks in one batch with the F5
@@ -1943,7 +2109,7 @@ def _f5_rehearsal(smi: str) -> None:
     np.savez(REHEARSAL_REF, **{k: np.asarray(v) for k, v in ref.items() if k != "combined_text"},
              combined_text=np.asarray(str(ref["combined_text"])))  # as --save-ref writes it
 
-    want = spec.depth * (spec.nfe_step - 1)
+    want = _forwards(spec.depth, spec.nfe_step - 1)
     bounds = {"float32": 1e-2, "bfloat16": GOLDEN_BF16_MAX}  # kernel vs plain
     for dtype, plain_tol in bounds.items():
         latents = {}
@@ -1955,7 +2121,7 @@ def _f5_rehearsal(smi: str) -> None:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             got = _launches()
-            expect = {"fused_rope": want if use_kernels else 0, "flash": 0}
+            expect = want if use_kernels else NO_LAUNCHES
             if got != expect:
                 raise AssertionError(f"(a) {dtype} use_kernels={use_kernels}: launches "
                                      f"{got}, want {expect}")
@@ -2012,9 +2178,9 @@ def _f5_rehearsal(smi: str) -> None:
     torch.cuda.empty_cache()
 
 
-def _native_crossfade(api, smi: str) -> int:
+def _native_crossfade(api, smi: str) -> dict:
     """Phase 10 (c): the long text blocking and streamed through the native
-    cross-fade; returns the fused kernel's launches."""
+    cross-fade; returns the kernels' launches."""
     import vietvoice_tts_tpu_torch.pipeline.audio as audio
     from vietvoice_tts_tpu_torch.native import audio_native, build as native_build
 
@@ -2057,11 +2223,11 @@ def _native_crossfade(api, smi: str) -> int:
     if blocking_joins != chunks - 1 or stream_joins != chunks - 1:
         raise AssertionError(f"(c) native joins {blocking_joins}, {stream_joins}; "
                              f"want {chunks - 1} each")
-    per_batch = api.engine.config.dit_depth * (api.engine.config.nfe_step - 1)
-    want = per_batch * (batches + chunks)  # streaming dispatches a chunk a batch
+    run_cfg = api.engine.config
     _check_replays("(c) blocking and streamed", batches + chunks)
-    if blocking_launches["fused_rope"] != per_batch * batches or launches != {
-            "fused_rope": want, "flash": 0}:
+    # Streaming dispatches a chunk a batch.
+    if (blocking_launches != _solves(run_cfg, batches)
+            or launches != _solves(run_cfg, batches + chunks)):
         raise AssertionError(f"(c) launches {blocking_launches}, {launches}")
     _check_wave("(c) blocking", blocking)
     stream = np.concatenate(pieces)
@@ -2100,11 +2266,11 @@ def _native_crossfade(api, smi: str) -> int:
         f"({sum(len(w) for w in chunk_waves)} samples), median of 20 on the host: numpy "
         f"{statistics.median(numpy_ms):.3f} ms, native {statistics.median(native_ms):.3f} ms, "
         f"against {block_s * 1e3:.1f} ms for the request [{smi}]")
-    return launches["fused_rope"]
+    return launches
 
 
-def phase_conversion(smi: str) -> int:
-    """Phase 10: conversion day at the F5 widths; returns the fused kernel's
+def phase_conversion(smi: str) -> dict:
+    """Phase 10: conversion day at the F5 widths; returns the kernels'
     launches over the requests served from the converted pack."""
     import torch
 
@@ -2149,7 +2315,7 @@ def phase_conversion(smi: str) -> int:
     if (cfg.dit_heads, cfg.head_dim, cfg.dit_depth, cfg.device) != (16, 64, 22, "cuda"):
         raise AssertionError(f"(b) pack config {cfg.dit_heads}×{cfg.head_dim}, "
                              f"depth {cfg.dit_depth}, {cfg.device}")
-    launches_total = 0
+    launches_total = dict(NO_LAUNCHES)
     with vt.TTSApi(cfg) as api:
         t0 = time.perf_counter()
         api.engine  # noqa: B018 — loads the pack
@@ -2167,12 +2333,12 @@ def phase_conversion(smi: str) -> int:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             got = _launches()
-            if got != {"fused_rope": per_batch * batches, "flash": 0}:
+            if got != _solves(cfg, batches):
                 raise AssertionError(f"(b) {label}: launches {got}, want "
-                                     f"{per_batch * batches} of kernel 1")
+                                     f"{_solves(cfg, batches)}")
             _check_replays(f"(b) {label}", batches)
             _check_wave(f"(b) {label}", wave)
-            launches_total += got["fused_rope"]
+            launches_total = _sum_launches(launches_total, got)
             waves.append(wave)
             log(f"[10] (b) short sentence at 16 × 64, full depth, bf16, {label}: "
                 f"{wall * 1e3:.1f} ms wall, {wave.size / cfg.sample_rate:.2f} s audio, "
@@ -2185,7 +2351,7 @@ def phase_conversion(smi: str) -> int:
             eager, _ = api.synthesize(SHORT_TEXT)
         _pcm_gap("[10] (b)", "16x64 F5 pack short sentence", waves[1], eager, smi)
         log(f"[10] (b) done in {time.perf_counter() - t_b:.1f} s")
-        launches_total += _native_crossfade(api, smi)
+        launches_total = _sum_launches(launches_total, _native_crossfade(api, smi))
     log(f"[10] done in {time.perf_counter() - t_phase:.1f} s [{smi}]")
     return launches_total
 
@@ -2536,20 +2702,19 @@ def _p11_launch(world: int, steps: tuple, d: dict, name: str) -> list:
     return [pickle.loads((workdir / f"rank{r}.pkl").read_bytes()) for r in range(world)]
 
 
-def _p11_check_latent(label, results, ref, dtype, card, want, route):
-    """Each rank's latent against one rank's; launches per rank as wanted."""
+def _p11_check_latent(label, results, ref, dtype, card, want):
+    """Each rank's latent against one rank's; launches per rank as ``want``."""
     max_tol, mean_tol = MEL_TOLERANCE[dtype]
     for rank, (lat, launches, wall, peak) in enumerate(results):
         diff = np.abs(lat - ref)
         err, mean = float(diff.max()), float(diff.mean())
-        expect = {k: (want if k == route else 0) for k in launches}
         log(f"[11] {label} {dtype} rank {rank}: latent vs one rank max-abs {err:.3e} "
             f"(tol {max_tol:.0e}), mean-abs {mean:.3e} (tol {mean_tol:.0e}); launches {launches}; "
             f"{wall:.1f} s wall, peak {peak:.2f} GB [{card}]")
         if not (np.isfinite(lat).all() and err <= max_tol and mean <= mean_tol):
             raise AssertionError(f"[11] {label} {dtype} rank {rank}: outside tolerance")
-        if launches != expect:
-            raise AssertionError(f"[11] {label} {dtype} rank {rank}: launches {launches}, want {expect}")
+        if launches != want:
+            raise AssertionError(f"[11] {label} {dtype} rank {rank}: launches {launches}, want {want}")
 
 
 def phase_parallel(cfg, smi: str) -> dict:
@@ -2619,9 +2784,7 @@ def phase_parallel(cfg, smi: str) -> dict:
     three = _p11_launch(3, ("c",), d, "three_ranks")
     log(f"[11] three ranks (c) in {time.perf_counter() - t0:.1f} s wall [{smi}]")
 
-    depth, evals = cfg.dit_depth, cfg.nfe_step - 1
-    per_solve = depth * evals
-    total = {"fused_rope": 0, "flash": 0}
+    total = dict(NO_LAUNCHES)
     for r in two + three:
         if r["off_device"]:
             raise AssertionError(f"[11] tensors off the card: {sorted(set(r['off_device']))}")
@@ -2630,13 +2793,14 @@ def phase_parallel(cfg, smi: str) -> dict:
     for label, heads, dtype, route in P11_A_RUNS:
         _p11_check_latent(f"(a) TP 2 {label} → {heads // 2}x{1024 // heads} per rank",
                           [r["a"][(label, dtype)] for r in two], refs[(label, dtype)],
-                          dtype, card, per_solve, route)
+                          dtype, card, _solves(cfg, 1, route))
     # (b) Ulysses, sp 2, bucket 2048: kernel 1 at 4 × 128 on all 2048 frames.
     _p11_check_latent("(b) Ulysses sp 2, bucket 2048", [r["b"] for r in two], refs["2048"],
-                      P11_B_DTYPE, card, per_solve, "fused_rope")
-    # (c) The ring, sp 3 (8 heads do not split over 3), bucket 384: no kernel.
+                      P11_B_DTYPE, card, _solves(cfg, 1))
+    # (c) The ring, sp 3 (8 heads do not split over 3), bucket 384: no
+    # attention kernel; the AdaLN kernel on each rank's frames.
     _p11_check_latent("(c) ring sp 3, bucket 384", [r["c"] for r in three],
-                      refs[("8x128", P11_C_DTYPE)], P11_C_DTYPE, card, 0, "fused_rope")
+                      refs[("8x128", P11_C_DTYPE)], P11_C_DTYPE, card, _solves(cfg, 1, None))
     # (d) DP 2: four rows, two per rank.
     for rank, r in enumerate(two):
         pcm, launches, wall, peak = r["d"]
@@ -2646,13 +2810,13 @@ def phase_parallel(cfg, smi: str) -> dict:
             f"{wall:.1f} s wall, peak {peak:.2f} GB [{card}]")
         if pcm.shape != refs["d"].shape or err > P11_PCM_TOLERANCE:
             raise AssertionError(f"[11] (d) rank {rank}: PCM outside tolerance")
-        if launches != {"fused_rope": per_solve, "flash": 0}:
+        if launches != _solves(cfg, 1):
             raise AssertionError(f"[11] (d) rank {rank}: launches {launches}")
     # (e) Training: DP 2 and TP 2 against one rank.
     for name in ("dp", "tp"):
         for rank, r in enumerate(two):
             (losses, ref_losses, rel, worst), launches, wall, peak = r["e"][name]
-            if launches != {"fused_rope": 0, "flash": 0}:
+            if launches != NO_LAUNCHES:
                 raise AssertionError(f"[11] (e) {name} rank {rank}: launches {launches}")
             if not np.isfinite(losses).all():
                 raise AssertionError(f"[11] (e) {name} rank {rank}: loss {losses}")
@@ -2667,7 +2831,7 @@ def phase_parallel(cfg, smi: str) -> dict:
     max_tol, mean_tol = STREAM_TOLERANCE
     for rank, r in enumerate(two):
         waves, launches, wall, peak, dispatches = r["f"]
-        want = {"fused_rope": per_solve * len(dispatches), "flash": 0}
+        want = _solves(cfg, len(dispatches))
         log(f"[11] (f) MultiHostServingLoop, TP 2, {P11_F_DTYPE}, rank {rank}: "
             f"{len(dispatches)} dispatches "
             f"(real rows {dispatches}); launches {launches}; {wall:.1f} s wall, peak "
@@ -2683,9 +2847,7 @@ def phase_parallel(cfg, smi: str) -> dict:
 
     for r in two + three:
         runs = [*r["a"].values(), r["b"], r["d"], r["f"]] if "a" in r else [r["c"]]
-        for run in runs:
-            for k in total:
-                total[k] += run[1][k]
+        total = _sum_launches(total, *(run[1] for run in runs))
     log(f"[11] done in {time.perf_counter() - t_phase:.1f} s; launches over all ranks {total}. "
         f"Ranks share one card over a host-staged gloo transport: no time here is a "
         f"scaling number [{smi}]")
@@ -2710,12 +2872,11 @@ P12_DRIFT_FRAMES = (384, 448, 512, 704)  # the JAX harness's default buckets
 P12_HELD_MIB = 16  # device memory a harness call may leave allocated behind it
 
 
-def _counted(label: str, fn, want: int, solves: int):
+def _counted(label: str, fn, want: dict, solves: int):
     """``fn()`` with the launch counters set to 0 just before and read just
-    after → (its result, wall s); kernel 1 must launch exactly ``want``
-    times and kernel 2 never, each of the ``solves`` must be one graph
-    replay, and the cores ``fn`` built must be released (device memory
-    back to where it was)."""
+    after → (its result, wall s); the kernels must launch as ``want``
+    says, each of the ``solves`` must be one graph replay, and the cores
+    ``fn`` built must be released (device memory back to where it was)."""
     import torch
 
     held = torch.cuda.memory_allocated()
@@ -2725,8 +2886,8 @@ def _counted(label: str, fn, want: int, solves: int):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = _launches()
-    if got != {"fused_rope": want, "flash": 0}:
-        raise AssertionError(f"[12] {label}: launches {got}, want {want} of kernel 1")
+    if got != want:
+        raise AssertionError(f"[12] {label}: launches {got}, want {want}")
     _check_replays(f"[12] {label}", solves)
     gc.collect()  # an EngineCore holds reference cycles: only the collector frees it
     left = (torch.cuda.memory_allocated() - held) / 2**20
@@ -2742,11 +2903,11 @@ def _deep_cache_evals(depth: int, steps: int, r: int, j: int) -> int:
     return depth * full + j * (steps - full)
 
 
-def _sweep_ref(pack: Path, per_solve: int, card: str) -> dict:
+def _sweep_ref(pack: Path, per_solve: dict, card: str) -> dict:
     """The sweeps' reference: the pack's reference clip (``reference_side``
     takes ``audio_metadata.json[0]``), the golden text and seeded noise at
     P12_FRAMES; its ``ref_mel`` is the port's own float32 exact latent
-    (TF32 off, ``per_solve`` kernel-1 launches, counted apart)."""
+    (TF32 off, launches as ``per_solve`` says, counted apart)."""
     from vietvoice_tts_tpu_torch.golden import torch_latent
     from vietvoice_tts_tpu_torch.pipeline.audio import AudioProcessor
     from vietvoice_tts_tpu_torch.pipeline.text import TextProcessor
@@ -2771,11 +2932,11 @@ def _sweep_ref(pack: Path, per_solve: int, card: str) -> dict:
         raise AssertionError("[12] the f32 reference latent is not finite")
     log(f"[12] reference: {len(audio) / 24000:.2f} s clip, {ref['ref_signal_len']} reference "
         f"frames of {P12_FRAMES}; f32 exact latent {wall:.1f} s with the core's build, "
-        f"{per_solve} kernel-1 launches [{card}]")
+        f"launches {per_solve} [{card}]")
     return {**ref, "ref_mel": latent}
 
 
-def _kernel_vs_plain_at_depth(pack: Path, ref: dict, per_solve: int, depth: int,
+def _kernel_vs_plain_at_depth(pack: Path, ref: dict, per_solve: dict, depth: int,
                               card: str) -> None:
     """(a) The bucket-448 solve of the sweeps' reference with kernel 1 and
     without, in float32 (its tf32x3 variant; the kernel's latent is ``ref``'s
@@ -2791,7 +2952,7 @@ def _kernel_vs_plain_at_depth(pack: Path, ref: dict, per_solve: int, depth: int,
             f"(a) {dtype} use_kernels={use_kernels}",
             lambda: torch_latent(pack, ref, device="cuda", compute_dtype=dtype,
                                  use_kernels=use_kernels),
-            per_solve if use_kernels else 0, 1)
+            per_solve if use_kernels else NO_LAUNCHES, 1)
         if not np.isfinite(latent).all():
             raise AssertionError(f"[12] (a) {dtype} use_kernels={use_kernels}: not finite")
         latents[dtype, use_kernels] = latent
@@ -2817,7 +2978,7 @@ def _interleaved_prices(pack: Path, ref: dict, settings: list) -> list:
     all): one untimed solve each, then P12_ROUNDS rounds with the settings'
     order rotated every round (the median of each setting's solves), and
     one solve each under ``torch.profiler`` (its device kernel time and
-    kernel count). ``settings``: (label, SamplerConfig fields, kernel-1
+    kernel count). ``settings``: (label, SamplerConfig fields, the kernels'
     launches a solve) → rows."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2845,7 +3006,7 @@ def _interleaved_prices(pack: Path, ref: dict, settings: list) -> list:
             solve(i)
             walls[i].append((time.perf_counter() - t0) * 1e3)
     rows = []
-    for i, ((label, _, evals), ms) in enumerate(zip(settings, walls)):
+    for i, ((label, _, launches), ms) in enumerate(zip(settings, walls)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         # The device's activity alone: tracing every host op as well costs
@@ -2856,7 +3017,7 @@ def _interleaved_prices(pack: Path, ref: dict, settings: list) -> list:
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and e.self_device_time_total > 0
                    and not getattr(e, "is_user_annotation", False) and "#" not in e.key]
-        rows.append({"label": label, "evals": evals, "ms": ms,
+        rows.append({"label": label, "evals": launches["fused_rope"], "ms": ms,
                      "median_ms": statistics.median(ms),
                      "device_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
                      "kernels": sum(e.count for e in kernels),
@@ -2864,11 +3025,11 @@ def _interleaved_prices(pack: Path, ref: dict, settings: list) -> list:
     return rows
 
 
-def phase_sweeps(card: str) -> int:
+def phase_sweeps(card: str) -> dict:
     """Phase 12: ``precision_drift``, ``deep_cache_sweep`` and
     ``cfg_cache_sweep`` at 16 × 64, 22 layers, through kernel 1, the
     harness's command line, and the sweeps' settings timed interleaved and
-    traced; returns kernel 1's launches."""
+    traced; returns the kernels' launches."""
     import torch
 
     from vietvoice_tts_tpu_torch.golden import (
@@ -2882,19 +3043,19 @@ def phase_sweeps(card: str) -> int:
     if (pack_cfg.dit_heads, pack_cfg.head_dim, depth, steps) != P12_SHAPE:
         raise AssertionError(f"[12] pack {pack_cfg.dit_heads} × {pack_cfg.head_dim}, "
                              f"{depth} layers, {steps} steps: want {P12_SHAPE}")
-    per_solve = depth * steps
-    total = 0
+    per_solve = _forwards(depth, steps)
+    total = dict(NO_LAUNCHES)
 
     # (a) precision_drift: per bucket a float32 solve (TF32 off, kernel 1's
     # tf32x3 variant) and a bf16 one (its wgmma variant).
-    want = 2 * len(P12_DRIFT_FRAMES) * per_solve
+    want = _forwards(depth, 2 * len(P12_DRIFT_FRAMES) * steps)
     drift, wall = _counted("(a) precision_drift",
                            lambda: precision_drift(pack, frames=P12_DRIFT_FRAMES,
                                                    device="cuda"), want,
                            2 * len(P12_DRIFT_FRAMES))
-    total += want
+    total = _sum_launches(total, want)
     log(f"[12] (a) precision_drift, compute {drift['compute_dtype']} vs float32, "
-        f"{drift['ref_frames']} reference frames: {wall:.1f} s, {want} kernel-1 launches [{card}]")
+        f"{drift['ref_frames']} reference frames: {wall:.1f} s, launches {want} [{card}]")
     for row in drift["rows"]:
         over = " — over the 5e-2 bound (reported, not gated)" if (
             row["mel_max_abs"] > GOLDEN_BF16_MAX) else ""
@@ -2904,20 +3065,21 @@ def phase_sweeps(card: str) -> int:
             raise AssertionError(f"[12] (a) drift not finite: {row}")
 
     ref = _sweep_ref(pack, per_solve, card)
-    total += per_solve
+    total = _sum_launches(total, per_solve)
     # The bf16 kernel solve here only compares: its launches are not counted.
     _kernel_vs_plain_at_depth(pack, ref, per_solve, depth, card)
 
     # (b) deep_cache_sweep and (c) cfg_cache_sweep in bf16 (--serving-precision).
     torch.cuda.reset_peak_memory_stats()
-    want = (1 + P12_REPEATS) * sum(_deep_cache_evals(depth, steps, r, j) for r, j in P12_DEEP)
+    want = _sum_launches(*(_deep_cache_launches(depth, steps, r, j)
+                           for r, j in P12_DEEP for _ in range(1 + P12_REPEATS)))
     deep, wall = _counted("(b) deep_cache_sweep",
                           lambda: deep_cache_sweep(pack, ref, settings=P12_DEEP,
                                                    repeats=P12_REPEATS, device="cuda"), want,
                           (1 + P12_REPEATS) * len(P12_DEEP))
-    total += want
+    total = _sum_launches(total, want)
     log(f"[12] (b) deep_cache_sweep, bf16, bucket {deep['frames']}, best of {P12_REPEATS}: "
-        f"{wall:.1f} s, {want} kernel-1 launches, peak device memory "
+        f"{wall:.1f} s, launches {want}, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
     for row in deep["rows"]:
         r, j = row["deep_cache_interval"], row["deep_cache_blocks"]
@@ -2927,15 +3089,15 @@ def phase_sweeps(card: str) -> int:
             f"{row['mel_max_abs_vs_exact']:.3e}; MAE vs the f32 exact latent (the "
             f"mel_mae_vs_onnx column) {row['mel_mae_vs_onnx']:.3e} [{card}]")
     torch.cuda.reset_peak_memory_stats()
-    want = (1 + P12_REPEATS) * len(P12_CFG) * per_solve
+    want = _forwards(depth, (1 + P12_REPEATS) * len(P12_CFG) * steps)
     cfgc, wall = _counted("(c) cfg_cache_sweep",
                           lambda: cfg_cache_sweep(pack, ref, intervals=P12_CFG,
                                                   repeats=P12_REPEATS, device="cuda"), want,
                           (1 + P12_REPEATS) * len(P12_CFG))
-    total += want
+    total = _sum_launches(total, want)
     log(f"[12] (c) cfg_cache_sweep, bf16, bucket {cfgc['frames']}, best of {P12_REPEATS}: "
-        f"{wall:.1f} s, {want} kernel-1 launches (a cond-only evaluation is still one "
-        f"launch a block), peak device memory "
+        f"{wall:.1f} s, launches {want} (a cond-only evaluation is still one "
+        f"forward), peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
     for row in cfgc["rows"]:
         log(f"[12] (c) k={row['uncond_interval']}: {row['latent_ms']} ms a solve, speedup "
@@ -2983,15 +3145,15 @@ def phase_sweeps(card: str) -> int:
     # interleaved on one core, and each one's device time is read from a trace.
     settings = [("exact", {}, per_solve)]
     settings += [(f"deep r={r} j={j}", {"deep_cache_interval": r, "deep_cache_blocks": j},
-                  _deep_cache_evals(depth, steps, r, j)) for r, j in P12_DEEP[1:]]
+                  _deep_cache_launches(depth, steps, r, j)) for r, j in P12_DEEP[1:]]
     settings += [(f"cfg k={k}", {"uncond_interval": k}, per_solve) for k in P12_CFG[1:]]
-    want = (2 + P12_ROUNDS) * sum(evals for _, _, evals in settings)
+    want = _sum_launches(*(launches for _, _, launches in settings for _ in range(2 + P12_ROUNDS)))
     rows, wall = _counted("(e) interleaved", lambda: _interleaved_prices(pack, ref, settings),
                           want, (2 + P12_ROUNDS) * len(settings))
-    total += want
+    total = _sum_launches(total, want)
     log(f"[12] (e) {len(settings)} settings on one bf16 core, bucket {P12_FRAMES}, {P12_ROUNDS} "
-        f"interleaved rounds and one traced solve each: {wall:.1f} s, {want} kernel-1 "
-        f"launches [{card}]")
+        f"interleaved rounds and one traced solve each: {wall:.1f} s, launches {want} "
+        f"[{card}]")
     base = rows[0]
     for row in rows:
         traced = (f"device kernels {row['device_ms']:.1f} ms in {row['kernels']} launches, "
@@ -3001,8 +3163,7 @@ def phase_sweeps(card: str) -> int:
             f"{row['median_ms']:.2f} ms (rounds {' '.join(f'{t:.1f}' for t in row['ms'])}), "
             f"speedup {base['median_ms'] / row['median_ms']:.3f}; {traced} (the traced solve "
             f"and its reading {row['trace_s']:.1f} s) [{card}]")
-    log(f"[12] done in {time.perf_counter() - t_phase:.1f} s, {total} kernel-1 launches "
-        f"[{card}]")
+    log(f"[12] done in {time.perf_counter() - t_phase:.1f} s, launches {total} [{card}]")
     return total
 
 
@@ -3059,7 +3220,7 @@ def _graph_row(tag: str, label: str, entry, card: str) -> dict:
                capture_s=entry.capture_s)
     log(f"{tag} graph {label}: capture {entry.capture_s:.2f} s (eager run and capture), "
         f"nodes {graph.node_types} (rewritten as kernels: {graph.rewritten}), "
-        f"attention launches {entry.launches}; replay device {row['device_ms']:.2f} ms, host "
+        f"kernel launches {entry.launches}; replay device {row['device_ms']:.2f} ms, host "
         f"{row['host_ms']:.3f} ms to launch it (medians of {P14_REPLAYS}; host "
         f"{' '.join(f'{t:.3f}' for t in host_ms)}) [{card}]")
     if graph.node_types["memset"] or row["host_ms"] > HOST_LAUNCH_MS:
@@ -3510,14 +3671,13 @@ def start_bench_process():
     return proc, full_out, time.perf_counter()
 
 
-def finish_bench_process(started, cfg, smi: str) -> int:
+def finish_bench_process(started, cfg, smi: str) -> dict:
     """13 (a), awaited: exit 0, the root harness's compact keys, ``cuda``, a
-    value above 0, the full record, and 682 kernel-1 launches per batch in
-    it; returns those launches."""
+    value above 0, the full record, and 682 kernel-1 and 1,395 AdaLN
+    launches per batch in it; returns those launches."""
     from vietvoice_tts_tpu_torch.bench import COMPACT_KEYS, COMPACT_MAX_CHARS
 
     proc, full_out, t0 = started
-    per_batch = cfg.dit_depth * (cfg.nfe_step - 1)
     try:
         stdout, stderr = proc.communicate(timeout=P13_TIMEOUT)
     except subprocess.TimeoutExpired:
@@ -3537,21 +3697,22 @@ def finish_bench_process(started, cfg, smi: str) -> int:
         raise AssertionError(f"bench's compact line: {last}")
     record = json.loads(full_out.read_text())
     launches = record["launches"]
-    fused, flash = launches["fused_qkv_rope_attention"], launches["flash_attention"]
-    if flash != 0 or fused <= 0 or fused != per_batch * record["graphs"]["replays"]:
-        raise AssertionError(f"bench's launches {launches}, want {per_batch} per graph replay "
-                             f"({record['graphs']})")
+    got = {"fused_rope": launches["fused_qkv_rope_attention"],
+           "flash": launches["flash_attention"], "adaln": launches["adaln_norm"]}
+    replays = record["graphs"]["replays"]
+    if replays <= 0 or got != _solves(cfg, replays):
+        raise AssertionError(f"bench's launches {launches}, want {_solves(cfg, 1)} per graph "
+                             f"replay ({record['graphs']})")
     log(f"[13] (a) bench --skip-rest: exit 0, {wall:.1f} s from its start (beside phase 11: "
         f"no time of this run is a measurement); {len(last)} characters: {last} [{smi}]")
-    log(f"[13] (a) full record {full_out.relative_to(ROOT)}: {fused} kernel-1 launches "
-        f"({fused // per_batch} batches, each one graph replay; graphs {record['graphs']}) "
-        f"[{smi}]")
-    return fused
+    log(f"[13] (a) full record {full_out.relative_to(ROOT)}: launches {got} ({replays} "
+        f"batches, each one graph replay; graphs {record['graphs']}) [{smi}]")
+    return got
 
 
-def _bench_rest(api, per_batch: int, smi: str) -> int:
+def _bench_rest(api, smi: str) -> dict:
     """13 (b): the bench's REST points in this process, at P13_REQUESTS each;
-    returns the kernel-1 launches."""
+    returns the kernels' launches."""
     from vietvoice_tts_tpu_torch import bench
     from vietvoice_tts_tpu_torch.api import tts_engine as te
 
@@ -3564,7 +3725,7 @@ def _bench_rest(api, per_batch: int, smi: str) -> int:
         return batchers[-1]
 
     engine.enable_micro_batching = keep
-    total = 0
+    total = dict(NO_LAUNCHES)
     try:
         t0 = time.perf_counter()
         client = bench.serve_through_app(api)
@@ -3582,24 +3743,23 @@ def _bench_rest(api, per_batch: int, smi: str) -> int:
             stats = batchers[-1].stats
             if stats.failures or stats.retries:
                 raise AssertionError(f"(b) {label}: {stats}")
-            if got != {"fused_rope": stats.batches * per_batch, "flash": 0}:
+            if got != _solves(api.config, stats.batches):
                 raise AssertionError(f"(b) {label}: launches {got} for {stats.batches} batches")
             _check_replays(f"(b) {label}", stats.batches)
             if "mode" not in point and not point["mean_batch_size"] > 1:
                 raise AssertionError(f"(b) {label}: mean batch size {point['mean_batch_size']}")
-            total += got["fused_rope"]
+            total = _sum_launches(total, got)
             log(f"[13] (b) REST {label}: {point}; {stats.batches} batches (the warm-up "
-                f"request's included), {stats.jobs} jobs, {got['fused_rope']} kernel-1 "
-                f"launches [{smi}]")
+                f"request's included), {stats.jobs} jobs, launches {got} [{smi}]")
     finally:
         te._engine = None
         engine.enable_micro_batching = real
     return total
 
 
-def _bench_batch_row(api, per_batch: int, smi: str) -> int:
+def _bench_batch_row(api, smi: str) -> dict:
     """13 (c): row 0 of a batch of 32 at 512 frames against the same row
-    alone at batch 1, one seed; returns the kernel-1 launches."""
+    alone at batch 1, one seed; returns the kernels' launches."""
     from vietvoice_tts_tpu_torch.bench import _batched_inputs
 
     core = api.engine.engine_core
@@ -3611,7 +3771,7 @@ def _bench_batch_row(api, per_batch: int, smi: str) -> int:
     wall = time.perf_counter() - t0
     alone = core.synthesize_batch(wave[:1], ref_len[:1], ids[:1], total[:1], seed=1)
     got = _launches()
-    if got != {"fused_rope": 2 * per_batch, "flash": 0}:
+    if got != _solves(core.config, 2):
         raise AssertionError(f"(c) launches {got}")
     _check_replays("(c) batch row", 2)
     # Phase 14 (a) at batch 32 × 512: the batch's replay against the eager
@@ -3629,19 +3789,18 @@ def _bench_batch_row(api, per_batch: int, smi: str) -> int:
         raise AssertionError(f"(c) shapes {rows.shape}, {alone.shape}")
     if max_diff > STREAM_TOLERANCE[0] or mean_diff > STREAM_TOLERANCE[1]:
         raise AssertionError("(c) batch row outside STREAM_TOLERANCE of its batch-1 self")
-    return got["fused_rope"]
+    return got
 
 
-def phase_bench(cfg, smi: str) -> int:
+def phase_bench(cfg, smi: str) -> dict:
     """13 (b) and (c), the bench's REST points and a batch row in this
-    process; returns kernel 1's launches (kernel 2 has none: the bench
+    process; returns the kernels' launches (kernel 2 has none: the bench
     serves 8 × 128). (a) runs beside phase 11."""
     from vietvoice_tts_tpu_torch import TTSApi
 
-    per_batch = cfg.dit_depth * (cfg.nfe_step - 1)
     api = TTSApi(cfg)
     try:
-        return _bench_rest(api, per_batch, smi) + _bench_batch_row(api, per_batch, smi)
+        return _sum_launches(_bench_rest(api, smi), _bench_batch_row(api, smi))
     finally:
         api.cleanup()
 
@@ -3682,6 +3841,7 @@ def main() -> int:
     phase(2, phase_build)
     fused_record = phase(3, phase_kernels, card)
     flash_record = phase("3 flash", phase_flash_kernel, card)
+    adaln_record = phase("3 adaln", phase_adaln, card)
     cfg = ModelConfig(device="cuda", model_cache_dir=str(WORK / "models"))
     # The default model's widths with a head split the fused kernel does not
     # take (head_dim 32); the weights do not depend on the split.
@@ -3709,24 +3869,20 @@ def main() -> int:
             bench[0].kill()
             bench[0].communicate()
     sweep_launches = phase(12, phase_sweeps, card)
-    bench_launches += phase(13, phase_bench, cfg, smi)
+    bench_launches = _sum_launches(bench_launches, phase(13, phase_bench, cfg, smi))
     phase("14 (e)", phase_traced, cfg, chunk_ms, card)
     log(f"[walls] {', '.join(f'phase {k} {v:.1f} s' for k, v in walls.items())}; "
         f"all phases {time.perf_counter() - t_script:.1f} s [{smi}]")
-    launches = {
-        "fused_rope": (launches["fused_rope"] + batched["fused_rope"] + rest_launches
-                       + trained_launches + converted_launches
-                       + parallel_launches["fused_rope"] + sweep_launches + bench_launches
-                       + head_launches["fused_rope"]),
-        "flash": (launches["flash"] + batched["flash"] + parallel_launches["flash"]
-                  + head_launches["flash"]),
-    }
+    launches = _sum_launches(launches, batched, rest_launches, trained_launches,
+                             converted_launches, parallel_launches, sweep_launches,
+                             bench_launches, head_launches)
     fused_record["launches"] = launches["fused_rope"]
     flash_record["launches"] = launches["flash"]
+    adaln_record["launches"] = launches["adaln"]
     if not all(launches.values()):
         raise AssertionError(f"a kernel was never launched on the main path: {launches}")
 
-    print(json.dumps({"kernels": [fused_record, flash_record]}))
+    print(json.dumps({"kernels": [fused_record, flash_record, adaln_record]}))
     print(smi)
     print(json.dumps({
         "ok": True,

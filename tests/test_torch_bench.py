@@ -451,7 +451,8 @@ def test_main_prints_the_compact_line_and_writes_the_full_record(tmp_path, capsy
     assert full["configs"]["batch32"]["batch"] == 32
     assert full["batch64"]["batch"] == 64
     assert full["spread_ms"]["short_sentence"]["reps"] == 13
-    assert full["launches"] == {"fused_qkv_rope_attention": 0, "flash_attention": 0}
+    assert full["launches"] == {"fused_qkv_rope_attention": 0, "flash_attention": 0,
+                                "adaln_norm": 0}
     assert (ROOT / "BENCH_full.json").read_bytes() == tpu_record
 
 

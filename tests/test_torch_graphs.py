@@ -242,6 +242,34 @@ def test_launch_counters_move_only_at_replay():
     assert launch_counts()["flash_attention"] == before["flash_attention"]
 
 
+def test_a_replay_adds_the_adaln_launches_of_its_forwards(graphed, monkeypatch):
+    """``launch_counts()`` carries the AdaLN kernel's module. With
+    ``use_kernels`` each DiT forward of a chunk program calls the kernel's
+    wrapper 1 + 2·depth times (a stand-in here, which counts a launch and
+    runs the plain version): the capture takes those counts back and every
+    replay adds one solve's, evals · (1 + 2·depth), whatever the batch."""
+    from vietvoice_tts_tpu_torch.models import dit as tdit
+    from vietvoice_tts_tpu_torch.ops.kernels import adaln_norm as an
+
+    assert set(launch_counts()) == {"fused_rope_attention", "flash_attention", "adaln_norm"}
+
+    def counted(*args, **kw):
+        an.launches += 1
+        return an.adaln_norm_reference(*args, **kw)
+
+    monkeypatch.setattr(tdit, "adaln_norm", counted)
+    graphed.dit.cfg = dataclasses.replace(graphed.dit.cfg, use_kernels=True)
+    per_solve = (graphed.sampler_cfg.nfe_step - 1) * (1 + 2 * graphed.dit.cfg.depth)
+    for b in (2, 2, 1):
+        wave, ref_len, ids, total, seeds = _batch(graphed, b=b)
+        before = launch_counts()
+        graphed.synthesize_batch(wave, ref_len, ids, total, seed=seeds)
+        after = launch_counts()
+        assert {k: after[k] - before[k] for k in after} == {
+            "fused_rope_attention": 0, "flash_attention": 0, "adaln_norm": per_solve}
+    assert (graphed.graph_captures, graphed.graph_replays) == (2, 3)
+
+
 def test_a_failed_capture_raises_and_leaves_nothing(graphed, monkeypatch):
     """The capture checks that the eager run made the solve's time grid:
     a warm run that made nothing fails the capture, which raises to the

@@ -227,11 +227,12 @@ def _config_for_pack(kwargs: Dict[str, Any]) -> ModelConfig:
 def kernel_launches() -> dict:
     """How often each CUDA kernel wrapper has launched its kernel in this
     process (0 everywhere on the CPU, where the plain versions run)."""
-    from .ops.kernels import flash_attention, fused_rope_attention
+    from .ops.kernels import adaln_norm, flash_attention, fused_rope_attention
 
     return {
         "fused_qkv_rope_attention": fused_rope_attention.launches,
         "flash_attention": flash_attention.launches,
+        "adaln_norm": adaln_norm.launches,
     }
 
 

@@ -19,6 +19,11 @@ Same network and numerics as the JAX module, written as an ``nn.Module``:
   tensors or raises (a head_dim neither kernel takes — not a multiple of 8,
   or above 1024 — is never served by a plain version on the card); without
   it, and for CPU tensors, the plain versions run.
+- Between two of a block's products, the gated residual and the next
+  modulated LayerNorm are one call of ``ops/kernels/adaln_norm.py``: its
+  CUDA kernel on CUDA tensors with ``use_kernels``, else its plain version,
+  the eager chain. A forward makes ``1 + 2·depth`` such calls, the final
+  norm folded into the last.
 - The sampler's deep-block cache (``shallow_blocks`` / ``deep_state`` /
   ``return_deep_state`` of :meth:`DiT.forward_embedded`).
 - The residual stream and matmuls are in ``compute_dtype``; LayerNorm
@@ -58,6 +63,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import attention
+from ..ops.kernels.adaln_norm import adaln_norm, adaln_norm_reference, layernorm
 from ..ops.kernels.fused_rope_attention import (
     fused_qkv_rope_attention,
     fused_qkv_rope_attention_reference,
@@ -70,7 +76,6 @@ from ..parallel.sequence import sp_attention
 TIME_FREQ_DIM = 256  # sinusoidal feature width for the flow time
 CONV_POS_KERNEL = 31
 TEXT_CONV_KERNEL = 7
-LN_EPS = 1e-6
 
 
 @dataclasses.dataclass(frozen=True)
@@ -199,13 +204,6 @@ def dwconv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.T
     xt = F.pad(x.transpose(1, 2), (lo, k - 1 - lo))
     y = F.conv1d(xt, weight.to(x.dtype), bias.to(x.dtype), groups=x.shape[-1])
     return y.transpose(1, 2)
-
-
-def layernorm(x: torch.Tensor, stats_dtype=torch.float32) -> torch.Tensor:
-    """Non-affine LayerNorm, eps 1e-6, statistics in ``stats_dtype``;
-    returns float32."""
-    xs = x.to(stats_dtype)
-    return F.layer_norm(xs, (xs.shape[-1],), eps=LN_EPS).float()
 
 
 def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
@@ -491,31 +489,42 @@ class DiT(nn.Module):
         cos, sin = self._rope(n, x.device)
         attend = self._attend()
 
-        def modulated_norm(h, sc, sh):
-            # sc/sh: [B', dim] f32; B' = 1 broadcasts over the batch.
-            return (
-                layernorm(h, cfg.norm_dtype) * (1.0 + sc[:, None]) + sh[:, None]
-            ).to(dtype)
+        # The gated residuals and modulated norms: one launch of the AdaLN
+        # kernel between two of the block's products (ops/kernels/adaln_norm.py;
+        # its plain version without use_kernels), carrying (h, u), u the
+        # normalised input of the next product. The final norm is float32
+        # (statistics and output) whatever norm_dtype says.
+        adaln = adaln_norm if cfg.use_kernels else adaln_norm_reference
+        sh_out, sc_out = fmod.chunk(2, dim=-1)
+        final = dict(norm_dtype=torch.float32, out_dtype=torch.float32)
 
-        def run_blocks(h, start, stop):
+        def run_blocks(h, start, stop, last_norm):
+            """Blocks [start, stop) → (h, u): u the final norm's output if
+            ``last_norm``, else None (h alone ends the segment)."""
+            sh_a, sc_a = mods[start].chunk(6, dim=-1)[:2]
+            _, u = adaln(h, scale=sc_a, shift=sh_a, norm_dtype=cfg.norm_dtype)
             for i in range(start, stop):
                 blk = self.blocks[i]
-                sh_a, sc_a, g_a, sh_f, sc_f, g_f = mods[i].chunk(6, dim=-1)
-                u = modulated_norm(h, sc_a, sh_a)
+                _, _, g_a, sh_f, sc_f, g_f = mods[i].chunk(6, dim=-1)
                 qkv = column_linear(u, blk.qkv, tp_group)
                 attn = attend(qkv, cos, sin, mask)
                 attn = row_linear(attn, blk.attn_out, tp_group)
-                h = h + g_a[:, None].to(dtype) * attn
+                h, u = adaln(h, g_a, attn, sc_f, sh_f, norm_dtype=cfg.norm_dtype)
 
-                u = modulated_norm(h, sc_f, sh_f)
                 f = F.gelu(column_linear(u, blk.ff1, tp_group), approximate="tanh")
                 f = row_linear(f, blk.ff2, tp_group)
-                h = h + g_f[:, None].to(dtype) * f
-            return h
+                if i + 1 < stop:
+                    sh_a, sc_a = mods[i + 1].chunk(6, dim=-1)[:2]
+                    h, u = adaln(h, g_f, f, sc_a, sh_a, norm_dtype=cfg.norm_dtype)
+                elif last_norm:
+                    h, u = adaln(h, g_f, f, sc_out, sh_out, **final)
+                else:
+                    h, u = adaln(h, g_f, f)
+            return h, u
 
         deep_out = None
         if shallow_blocks is None:
-            h = run_blocks(h, 0, cfg.depth)
+            _, u = run_blocks(h, 0, cfg.depth, True)
         else:
             # The blocks are a ModuleList, so the split is a slice of it; the
             # JAX function's ``presplit_blocks`` (weights pre-sliced outside
@@ -524,17 +533,15 @@ class DiT(nn.Module):
             j = int(shallow_blocks)
             if not 1 <= j < cfg.depth:
                 raise ValueError(f"shallow_blocks={j} must be in [1, depth={cfg.depth})")
-            h = run_blocks(h, 0, j)
+            h, _ = run_blocks(h, 0, j, False)
             if deep_state is not None:
                 h = h + deep_state.to(h.dtype)
+                _, u = adaln(h, scale=sc_out, shift=sh_out, **final)
             else:
-                h_deep = run_blocks(h, j, cfg.depth)
+                h_deep, u = run_blocks(h, j, cfg.depth, True)
                 deep_out = h_deep - h
-                h = h_deep
 
-        sh, sc = fmod.chunk(2, dim=-1)
-        h = layernorm(h) * (1.0 + sc[:, None]) + sh[:, None]
-        out = F.linear(h, self.final_proj.weight.float(), self.final_proj.bias.float())
+        out = F.linear(u, self.final_proj.weight.float(), self.final_proj.bias.float())
         out = comm.all_gather(out, cfg.seq_group, dim=1)
         out = torch.where(mask[..., None], out, torch.zeros((), device=out.device))
         if return_deep_state:

@@ -52,7 +52,7 @@ def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 # The modules whose wrappers count their launches (``<module>.launches``).
-KERNELS = ("fused_rope_attention", "flash_attention")
+KERNELS = ("fused_rope_attention", "flash_attention", "adaln_norm")
 
 
 def launch_counts() -> dict[str, int]:

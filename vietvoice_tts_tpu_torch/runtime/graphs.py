@@ -275,7 +275,7 @@ class GraphCache:
         self.captures += 1
         captures += 1
         log.info("Captured %s in %.2fs: nodes by type %s, rewritten as kernels %s; "
-                 "attention launches %s", key[:3], entry.capture_s,
+                 "kernel launches %s", key[:3], entry.capture_s,
                  getattr(graph, "node_types", None), getattr(graph, "rewritten", None),
                  entry.launches)
         return entry, warm
