@@ -4,7 +4,8 @@ the benchmark's own weights and clips.
 Layout of a pack directory, as the program's loader reads it::
 
     params.msgpack       flax-format msgpack {'dit': ..., 'vocoder': ...}
-    model_meta.json      the architecture's sizes; "synthetic": true
+    model_meta.json      the sizes, the backbone's from its architecture module
+                         (``benchmark/archs/``); "synthetic": true
     vocab.txt            one character a line
     audio_metadata.json  the voice catalogue
     audios/*.wav         the catalogue's clips, 16-bit PCM
@@ -22,6 +23,7 @@ from pathlib import Path
 
 import numpy as np
 
+from . import spec
 from .reference.pipeline import VOCAB_CHARS
 
 GENDERS = ("male", "female")
@@ -204,12 +206,10 @@ def write_pack(pack_dir: Path, weights_np: dict, model: dict, seed: int, voices:
     pack_dir.mkdir(parents=True, exist_ok=True)
     write_params(pack_dir / "params.msgpack", weights_np)
     (pack_dir / "vocab.txt").write_text("\n".join(VOCAB_CHARS) + "\n", encoding="utf-8")
-    dit, voc, audio = model["dit"], model["vocoder"], model["audio"]
+    voc, audio = model["vocoder"], model["audio"]
     meta = {
         "vocab_size": len(VOCAB_CHARS),
-        "dit": {"dim": dit["dim"], "depth": dit["depth"], "heads": dit["heads"],
-                "ff_mult": dit["ff_mult"], "text_dim": dit["text_dim"],
-                "text_conv_layers": dit["conv_layers"]},
+        "dit": spec.architecture(model["architecture"]).pack_meta(model),
         "vocoder": {"dim": voc["dim"], "intermediate_dim": voc["intermediate_dim"],
                     "num_layers": voc["num_layers"]},
         "n_mels": audio["n_mels"], "n_fft": audio["n_fft"],

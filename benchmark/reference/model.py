@@ -1,5 +1,8 @@
-"""Plain float32 F5-style model: mel front end, DiT, flow-matching sampler
-and Vocos vocoder, written from the equations with plain ``torch`` ops.
+"""Plain float32 model: mel front end, flow-matching sampler and Vocos
+vocoder, written from the equations with plain ``torch`` ops. The backbone
+whose velocity the sampler integrates is the configuration's architecture
+(``benchmark/archs/<architecture>.py``), through its ``prepare`` and
+``velocity``.
 
 It reads the weights as the benchmark makes them (``benchmark/weights.py``):
 a nested dict in the pack's layout, dense weights ``[in, out]`` used as
@@ -24,9 +27,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-TIME_FREQ_DIM = 256
+from .. import spec
+
 LN_EPS = 1e-6
-NEG_INF = -1e30
 LOG_MAG_CLIP = 10.0
 PRECISIONS = ("float32", "bfloat16", "fp8")
 FP8_MAX = 448.0
@@ -87,10 +90,6 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * x * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi) * (x + 0.044715 * x**3)))
 
 
-def mish(x: torch.Tensor) -> torch.Tensor:
-    return x * torch.tanh(F.softplus(x))
-
-
 # ---------------------------------------------------------------------------
 # Mel front end (Vocos-style: centred reflect-padded frames, periodic Hann,
 # power-1 magnitude, HTK mel filterbank without norm, natural log at 1e-5)
@@ -143,92 +142,8 @@ def log_mel(wave: torch.Tensor, audio: dict) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# DiT
+# Flow-matching sampler: Euler steps on the sway grid, CFG-doubled rows
 # ---------------------------------------------------------------------------
-
-
-def rope_tables(n: int, head_dim: int, device, theta: float = 10000.0):
-    """cos, sin [n, head_dim], the half-dim frequencies repeated on both halves."""
-    half = head_dim // 2
-    freqs = 1.0 / (theta ** (np.arange(half, dtype=np.float64) / half))
-    ang = np.arange(n, dtype=np.float64)[:, None] * freqs[None, :]
-    cos = np.concatenate([np.cos(ang)] * 2, axis=-1).astype(np.float32)
-    sin = np.concatenate([np.sin(ang)] * 2, axis=-1).astype(np.float32)
-    return torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device)
-
-
-def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """x [B, H, N, D]: (x1, x2) → x·cos + (-x2, x1)·sin."""
-    x1, x2 = x.chunk(2, dim=-1)
-    return x * cos + torch.cat([-x2, x1], dim=-1) * sin
-
-
-def attention(ops: Ops, qkv: torch.Tensor, mask: torch.Tensor, heads: int) -> torch.Tensor:
-    """Packed q ‖ k ‖ v [B, N, 3·H·D] → RoPE on q and k → softmax attention
-    over the valid keys → [B, N, H·D]."""
-    b, n, three_hd = qkv.shape
-    d = three_hd // (3 * heads)
-    q, k, v = (t.reshape(b, n, heads, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
-    cos, sin = rope_tables(n, d, qkv.device)
-    q, k = rotate(q, cos, sin), rotate(k, cos, sin)
-    logits = (ops.r(q) @ ops.r(k).transpose(-1, -2)) * d**-0.5
-    bias = torch.zeros(mask.shape, device=mask.device).masked_fill(~mask, NEG_INF)
-    weights = torch.softmax(logits + bias[:, None, None, :], dim=-1)
-    out = ops.r(weights) @ ops.r(v)
-    return out.transpose(1, 2).reshape(b, n, heads * d)
-
-
-def text_embed(ops: Ops, p: dict, ids: torch.Tensor, vocab_size: int) -> torch.Tensor:
-    """Character ids [B, N] (-1 padded) → [B, N, text_dim]: the table row
-    ids + 1 (row 0 the filler), then ConvNeXt blocks."""
-    idx = torch.clamp(ids.long() + 1, 0, vocab_size)
-    emb = p["table"][idx]
-    for blk in p["blocks"]:
-        h = layernorm(depthwise_same(emb, blk["dwconv"]))
-        h = gelu_tanh(ops.dense(h, blk["pw1"]))
-        emb = emb + ops.dense(h, blk["pw2"])
-    return emb
-
-
-def time_modulations(p: dict, t: torch.Tensor):
-    """Flow times t [S] → (per-block modulations [S, depth, 6·dim], final
-    modulation [S, 2·dim]); in float32 as the program keeps them."""
-    half = TIME_FREQ_DIM // 2
-    freqs = torch.exp(-math.log(10000.0) * torch.arange(half, device=t.device) / half)
-    args = t[:, None] * freqs[None, :] * 1000.0
-    feats = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
-    te = p["time_embed"]
-    h = F.silu(feats @ te["mlp1"]["w"] + te["mlp1"]["b"])
-    t_emb = F.silu(h @ te["mlp2"]["w"] + te["mlp2"]["b"])
-    ada = p["blocks"]["ada"]
-    mods = torch.einsum("sd,ldk->slk", t_emb, ada["w"]) + ada["b"][None]
-    fmod = t_emb @ p["final_ada"]["w"] + p["final_ada"]["b"]
-    return mods, fmod
-
-
-def dit_velocity(ops: Ops, p: dict, heads: int, x, cond, text_emb, mask, mods, fmod):
-    """One DiT evaluation: x, cond [B, N, n_mels], text_emb [B, N, text_dim],
-    mask [B, N], mods [depth, 6·dim], fmod [2·dim] → velocity [B, N, n_mels],
-    zero on padding frames."""
-    m = mask[..., None].float()
-    h = ops.dense(torch.cat([x * m, cond * m, text_emb * m], dim=-1), p["input_proj"])
-    pos = mish(depthwise_same(h, p["conv_pos"][0]))
-    h = (h + ops.dense(pos, p["conv_pos"][1])) * m
-    blocks = p["blocks"]
-    depth = blocks["qkv"]["w"].shape[0]
-    for i in range(depth):
-        layer = {k: {"w": blocks[k]["w"][i], "b": blocks[k]["b"][i]}
-                 for k in ("qkv", "attn_out", "ff1", "ff2")}
-        sh_a, sc_a, g_a, sh_f, sc_f, g_f = mods[i].chunk(6, dim=-1)
-        u = layernorm(h) * (1.0 + sc_a) + sh_a
-        a = attention(ops, ops.dense(u, layer["qkv"]), mask, heads)
-        h = h + g_a * ops.dense(a, layer["attn_out"])
-        u = layernorm(h) * (1.0 + sc_f) + sh_f
-        f = ops.dense(gelu_tanh(ops.dense(u, layer["ff1"])), layer["ff2"])
-        h = h + g_f * f
-    sh, sc = fmod.chunk(2, dim=-1)
-    out = ops.f32_dense(layernorm(h) * (1.0 + sc) + sh, p["final_proj"])
-    return torch.where(mask[..., None], out, torch.zeros((), device=out.device))
 
 
 def sway_grid(nfe_step: int, sway: float) -> torch.Tensor:
@@ -238,21 +153,22 @@ def sway_grid(nfe_step: int, sway: float) -> torch.Tensor:
 
 def sample(ops: Ops, p: dict, model: dict, cond, ids, mask, x0) -> torch.Tensor:
     """Euler solve of the CFG-doubled flow from x0 [B, N, n_mels] (cond rows,
-    then rows with zero conditioning and no text) → latent [B, N, n_mels]."""
+    then rows with zero conditioning and no text) → latent [B, N, n_mels].
+    The velocity is the configuration's backbone's, whose weights ``p`` are
+    the tree's ``"dit"``."""
+    arch = spec.architecture(model["architecture"])
     s = model["sampler"]
     t = sway_grid(s["nfe_step"], s["sway_sampling_coef"])
     dts = torch.diff(t).tolist()
     t_starts = t[:-1].to(cond.device)
-    mods, fmod = time_modulations(p, t_starts)
     b = cond.shape[0]
     cond2 = torch.cat([cond, torch.zeros_like(cond)])
     mask2 = torch.cat([mask, mask])
-    text2 = text_embed(ops, p["text_embed"], torch.cat([ids, torch.full_like(ids, -1)]),
-                       model["vocab_size"])
+    state = arch.prepare(ops, p, model, cond2, torch.cat([ids, torch.full_like(ids, -1)]),
+                         t_starts)
     x = x0
     for i, dt in enumerate(dts):
-        v2 = dit_velocity(ops, p, model["dit"]["heads"], torch.cat([x, x]), cond2, text2,
-                          mask2, mods[i], fmod[i])
+        v2 = arch.velocity(ops, p, model, state, torch.cat([x, x]), mask2, i)
         v_c, v_u = v2[:b], v2[b:]
         x = x + dt * (v_c + s["cfg_strength"] * (v_c - v_u))
     return x

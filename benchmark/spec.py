@@ -1,11 +1,12 @@
 """What a run is made of, found by name: the cell in ``BENCHMARK.json``, its
-configuration (``configs/<config>.json``), its traffic mix
+configuration (``configs/<config>.json``), the configuration's backbone
+(its ``"architecture"``, a module ``archs/<architecture>.py``), its traffic mix
 (``traffic/<mix>.json``, whose ``kind`` names a generator module in
 ``traffic/``), the per-layer metrics' readers (``metrics/<metric>.py``) and
 the limits of its output check (``limits/<cell>.json``).
 
-A new cell, configuration, mix or metric is an entry in ``BENCHMARK.json``
-and files of its own; nothing here changes.
+A new cell, configuration, architecture, mix or metric is an entry in
+``BENCHMARK.json`` and files of its own; nothing here changes.
 """
 
 from __future__ import annotations
@@ -43,6 +44,28 @@ def limits(cell_name: str) -> dict:
     return json.loads((HERE / "limits" / f"{cell_name}.json").read_text())
 
 
+def architecture(name: str):
+    """The module of the backbone called ``name`` (``archs/<name>.py``)."""
+    return importlib.import_module(f"benchmark.archs.{name}")
+
+
+def _architecture_of(cfg: dict):
+    """The module of the backbone a configuration names: an error naming
+    the file where it names none, or one that has no module."""
+    where = f"benchmark/configs/{cfg.get('name')}.json"
+    name = cfg.get("architecture")
+    if not isinstance(name, str) or not name.isidentifier():
+        raise ValueError(f"{where} names no architecture: it needs a top-level "
+                         f"\"architecture\" key, the name of a module in benchmark/archs/")
+    try:
+        return architecture(name)
+    except ModuleNotFoundError as e:
+        if e.name != f"benchmark.archs.{name}":
+            raise
+        raise ValueError(f"{where} names the architecture {name!r}, but there is no module "
+                         f"benchmark/archs/{name}.py") from e
+
+
 def generator(kind: str):
     """The traffic module that serves mixes of this ``kind``."""
     return importlib.import_module(f"benchmark.traffic.{kind}")
@@ -70,15 +93,16 @@ def metrics_for(cell_name: str, trace: bool) -> list[dict]:
 
 
 def model(cfg: dict) -> dict:
-    """A configuration file's ModelConfig keys → the sizes and settings the
-    benchmark's own code (weights, reference, traffic) reads."""
+    """A configuration file's architecture and ModelConfig keys → the sizes
+    and settings the benchmark's own code (weights, reference, traffic)
+    reads; the backbone's sizes, under ``"dit"``, from its architecture."""
     mc = cfg["model_config"]
+    arch = _architecture_of(cfg)
     from .reference.pipeline import VOCAB_CHARS
 
     return {
-        "dit": {"dim": mc["dit_dim"], "depth": mc["dit_depth"], "heads": mc["dit_heads"],
-                "ff_mult": mc["dit_ff_mult"], "text_dim": mc["text_dim"],
-                "conv_layers": mc["text_conv_layers"]},
+        "architecture": cfg["architecture"],
+        "dit": arch.backbone(mc),
         "vocoder": {"dim": mc["vocoder_dim"], "intermediate_dim": mc["vocoder_intermediate_dim"],
                     "num_layers": mc["vocoder_num_layers"]},
         "audio": {"sample_rate": mc["sample_rate"], "n_mels": mc["n_mels"], "n_fft": mc["n_fft"],

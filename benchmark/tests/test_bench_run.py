@@ -135,6 +135,19 @@ def test_the_control_fails_the_check(tiny_cfg, cell):
         assert check.relative_error(check.expected_pcm(*args, precision="bfloat16"), ref) < limit
 
 
+def test_the_control_tool_fails_the_check(tiny_cfg, tiny_rest_mix):
+    """``tools.control``'s readings, on the CPU at tiny widths: the fp8
+    reference above the cell's limit on every sampled request's seed, the
+    bfloat16 one under it."""
+    from benchmark.tools import control
+
+    limit = spec.limits("f5base.rest_short")["pcm_rel_err_max"]["limit"]
+    out = control.readings(spec.model(tiny_cfg), tiny_rest_mix, SEED, 1.0,
+                           ["fp8", "bfloat16"], "cpu")
+    assert out["requests"] == 2
+    assert out["fp8"]["max"] > limit and out["bfloat16"]["max"] < limit
+
+
 def _state_unchanged(api):
     """The solve returns its initial noise: no step moves the state."""
     import vietvoice_tts_tpu_torch.runtime.engine_core as ec

@@ -21,10 +21,37 @@ import time
 import torch
 
 
-def main(argv=None) -> int:
+def readings(model: dict, mix: dict, seed: int, seconds: float, precisions, device) -> dict:
+    """One seed's readings: the sampled requests' reference in float32, and
+    its relative error in each of ``precisions``."""
     from .. import pack, spec
     from ..reference import check
     from ..weights import make_weights
+
+    gen = spec.generator(mix["kind"])
+    voices = pack.voices(seed, model["audio"]["sample_rate"])
+    reqs = gen.requests(mix, model, voices, seed, seconds)
+    lengths = {r["i"]: len(r["text"]) for r in reqs}
+    picked = check.sample([{"i": r["i"], "ok": True} for r in reqs], lengths,
+                          mix["check"]["sample"], seed)
+    weights = make_weights(model, seed, device)
+    out = {"seed": seed, "requests": len(picked)}
+    t0 = time.perf_counter()
+    ref = [check.expected_pcm(reqs[i]["text"], voices[reqs[i]["voice"]], model, weights,
+                              device) for i in picked]
+    out["reference_s"] = time.perf_counter() - t0
+    out["audio_s"] = sum(len(r) for r in ref) / model["audio"]["sample_rate"]
+    out["rms"] = [float(torch.tensor(r, dtype=torch.float64).pow(2).mean().sqrt()) for r in ref]
+    for p in precisions:
+        errs = [check.relative_error(
+            check.expected_pcm(reqs[i]["text"], voices[reqs[i]["voice"]], model, weights,
+                               device, precision=p), r) for i, r in zip(picked, ref)]
+        out[p] = {"max": max(errs), "each": errs}
+    return out
+
+
+def main(argv=None) -> int:
+    from .. import spec
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", required=True)
@@ -38,28 +65,9 @@ def main(argv=None) -> int:
     cell = spec.cell(args.workload)
     cfg, mix = spec.config(cell["config"]), spec.mix(cell["traffic"])
     model = spec.model(cfg)
-    gen = spec.generator(mix["kind"])
     for seed in [int(s) for s in args.seeds.split(",")]:
-        voices = pack.voices(seed, model["audio"]["sample_rate"])
-        reqs = gen.requests(mix, model, voices, seed, args.seconds)
-        lengths = {r["i"]: len(r["text"]) for r in reqs}
-        picked = check.sample([{"i": r["i"], "ok": True} for r in reqs], lengths,
-                              mix["check"]["sample"], seed)
-        weights = make_weights(model, seed, "cuda")
-        out = {"seed": seed, "requests": len(picked)}
-        t0 = time.perf_counter()
-        ref = [check.expected_pcm(reqs[i]["text"], voices[reqs[i]["voice"]], model, weights,
-                                  "cuda") for i in picked]
-        out["reference_s"] = time.perf_counter() - t0
-        out["audio_s"] = sum(len(r) for r in ref) / model["audio"]["sample_rate"]
-        out["rms"] = [float(torch.tensor(r, dtype=torch.float64).pow(2).mean().sqrt()) for r in ref]
-        for p in args.precisions.split(","):
-            errs = [check.relative_error(
-                check.expected_pcm(reqs[i]["text"], voices[reqs[i]["voice"]], model, weights,
-                                   "cuda", precision=p), r) for i, r in zip(picked, ref)]
-            out[p] = {"max": max(errs), "each": errs}
+        out = readings(model, mix, seed, args.seconds, args.precisions.split(","), "cuda")
         print("CONTROL " + json.dumps(out), flush=True)
-        del weights
         torch.cuda.empty_cache()
     return 0
 

@@ -17,7 +17,10 @@ import sys
 
 def spread(values: list) -> float:
     q1, _, q3 = statistics.quantiles(values, n=4)
-    return (q3 - q1) / statistics.median(values)
+    median = statistics.median(values)
+    if median == 0:  # a count that reads 0 in most runs
+        return 0.0 if q3 == q1 else float("inf")
+    return (q3 - q1) / median
 
 
 def main(argv=None) -> int:
